@@ -1,4 +1,4 @@
-"""qpsk_tpu — a TPU-native QPSK packet-modem framework.
+"""qpsk_tpu — a QPSK packet-modem framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 MonsieurETM/QPSK C reference modem: 2400-baud Gray-coded QPSK with RRC pulse

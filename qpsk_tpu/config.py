@@ -49,8 +49,7 @@ class ModemConfig:
 
     # --- mode switches (new capability, not in reference) ---
     # modulation: "qpsk" is the flagship — bit-exact against the C
-    # reference (ops/modmap.py) and the one the fused Pallas kernels
-    # implement.  "bpsk" / "8psk" / "16qam" route the same frame/packet
+    # reference (ops/modmap.py).  "bpsk" / "8psk" / "16qam" route the same frame/packet
     # stack through the generic family (ops/modfam.py): generic
     # decision-directed carrier recovery (n_rot-fold ambiguity resolved by
     # the CRC-scored sync hunt), max-log LLRs for the soft/FEC path, and
@@ -85,25 +84,14 @@ class ModemConfig:
     # rotation search needed, a Costas cycle slip costs one symbol instead
     # of the rest of the stream.  Default off (reference parity: absolute).
     differential: bool = False
-    # costas_impl: "auto" picks the fused Pallas kernel on TPU when the
-    # batch shape allows (channels % 128 == 0), else the lax.scan lowering;
-    # "scan" / "pallas" force one.  Both are bit-identical.
+    # costas_impl: "auto" runs the Costas loop as the fused Pallas kernel
+    # on the GPU (ops/pallas/costas_kernel.py) and as a lax.scan anywhere
+    # else; "scan" / "pallas" force one.  The two agree to rounding.
     costas_impl: str = "auto"
-    # frontend_impl: "auto" picks the fused Pallas front-end kernel
-    # (int16 -> mix -> RRC FIR -> timing -> decimate in ONE HBM pass,
-    # ops/pallas/frontend_kernel.py) on TPU when the shape/mode allows
-    # (power timing, fast FIR, channel batch); "xla" forces the staged
-    # lowering; "pallas" forces the kernel (tests use interpret mode).
-    frontend_impl: str = "auto"
-    # tx_impl: "auto" picks the fused polyphase TX kernel (symbols ->
-    # upsample+RRC in one interleaved matmul -> mix -> int16, ONE HBM pass,
-    # ops/pallas/tx_kernel.py) on TPU when the shape/mode allows; "xla"
-    # forces the staged lowering; "pallas" forces the kernel (interpret on
-    # CPU).  Chirp (doppler) TX always takes the XLA path.
-    tx_impl: str = "auto"
-    # fir_precision: "fast" = one bf16 MXU pass (~0.3% output error, far
-    # below any channel noise; ~1.8x faster); "exact" = HIGHEST-precision
-    # f32 (parity-grade, required by the golden-vector tests).
+    # fir_precision: "fast" = the backend's default matmul precision (TF32
+    # on the GPU, ~3 decimal digits, far below any channel noise); "exact"
+    # = HIGHEST-precision f32 (parity-grade, required by the golden-vector
+    # tests).
     fir_precision: str = "fast"
     # eq_taps > 0 enables the blind CMA channel equalizer
     # (ops/equalizer.py): an eq_taps-long symbol-spaced adaptive filter on
@@ -166,10 +154,6 @@ class ModemConfig:
             raise ValueError(f"unknown slicer {self.slicer!r}")
         if self.costas_impl not in ("auto", "scan", "pallas"):
             raise ValueError(f"unknown costas_impl {self.costas_impl!r}")
-        if self.frontend_impl not in ("auto", "xla", "pallas"):
-            raise ValueError(f"unknown frontend_impl {self.frontend_impl!r}")
-        if self.tx_impl not in ("auto", "xla", "pallas"):
-            raise ValueError(f"unknown tx_impl {self.tx_impl!r}")
         if self.fir_precision not in ("fast", "exact"):
             raise ValueError(f"unknown fir_precision {self.fir_precision!r}")
         if self.acquisition not in ("none", "fft"):

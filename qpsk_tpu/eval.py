@@ -1,6 +1,6 @@
 """Link-evaluation harness: PER/BER/EVM vs SNR curves (BASELINE config #3).
 
-The sweep is TPU-shaped: every SNR point is a *channel* on the batch axis,
+Every SNR point is a *channel* on the batch axis,
 so one fused ``rx_stream`` call evaluates the whole curve; only packet sync
 (a tiny host-side search per point) runs outside the jit.
 """

@@ -7,10 +7,9 @@ channels — each the standard real 9600 S/s passband signal ``tx_stream``
 emits — into one real wideband stream at ``nslots * fs`` samples/s, and
 splits it back.  The per-channel modem (sync, Costas, packets, FEC) is
 untouched: the batched RX processes all subchannels as its ordinary
-channel axis, which is exactly the axis the TPU design already feeds the
-VPU lanes and the mesh with.
+channel axis, the axis the device batches and the mesh shards.
 
-Design, TPU-first — a critically-sampled polyphase-DFT filterbank in
+Design — a critically-sampled polyphase-DFT filterbank in
 which every stage is a matmul or a static-shift FIR (no gathers, no
 complex dtypes, no per-sample loops):
 

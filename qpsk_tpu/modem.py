@@ -12,7 +12,7 @@ RX (rx_frame, mirrors qpsk.c:81-218):
 All functions take ``cfg`` as a static argument, thread explicit state
 (``TxState`` / ``RxState``) and broadcast over arbitrary leading batch axes
 (channels).  Signals are CF32 split-plane complex; the RRC FIR runs as a
-Toeplitz matmul on the MXU (ops/rrc.py).
+banded Toeplitz matmul (ops/rrc.py).
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def _gear_for(cfg: ModemConfig):
 
 def _mod_for(cfg: ModemConfig):
     """modfam.Modulation for a generic-family config, None for the QPSK
-    flagship (which keeps the bit-exact ops/modmap + Pallas paths)."""
+    flagship (which keeps the bit-exact ops/modmap slicers)."""
     if cfg.modulation == "qpsk":
         return None
     from qpsk_tpu.ops import modfam
@@ -99,10 +99,9 @@ def _slice_bits(cfg: ModemConfig, derot: CF32) -> jnp.ndarray:
     """Hard-slice derotated symbols per the config's modulation/slicer."""
     mod = _mod_for(cfg)
     if mod is not None:
-        # comparison-program slicer: the decision the DD loop itself makes,
-        # and the one the fused kernel's packed-label emission replicates
-        # bit-for-bit (modfam.slice_labels_cmp; score-argmax decisions are
-        # not portable across lowerings — CLAUDE.md)
+        # comparison-program slicer: the decision the DD loop itself makes
+        # (modfam.slice_labels_cmp; score-argmax decisions can flip on
+        # near-ties between compilers — CLAUDE.md)
         from qpsk_tpu.ops import modfam
         return modfam.demod_bits_cmp(derot, mod, scale=cfg.agc_target)
     if cfg.slicer == "diagonal":
@@ -183,18 +182,6 @@ def tx_stream(cfg: ModemConfig, state: TxState, bits: jnp.ndarray,
         sym = modmap.bits_to_symbols(bits)          # (..., F, nsym)
         flat = CF32(sym.re.reshape(batch + (nframes * nsym,)),
                     sym.im.reshape(batch + (nframes * nsym,)))
-    if _use_fused_tx(cfg, batch, nframes * nsym, doppler_hz_per_s):
-        # ONE Pallas pass: upsample + RRC + interleave (single polyphase
-        # matmul) + mix + int16 (ops/pallas/tx_kernel.py) — same state
-        # contract as below
-        from qpsk_tpu.ops.pallas.tx_kernel import tx_modulate_fused
-        pcm, phase, fir_tail = tx_modulate_fused(
-            cfg, flat, state.nco_phase, state.fir_tail,
-            tx_offset_hz=tx_offset_hz)
-        pcm = pcm.reshape(batch + (nframes, nsym * cfg.cycles))
-        return state._replace(fir_tail=fir_tail, nco_phase=phase,
-                              diff_phase=diff_phase), pcm
-
     sig = modmap.upsample_zero_stuff(flat, cfg.cycles)
     n = sig.shape[-1]
     # block from the per-frame sample count (NOT cfg.frame_size): callers
@@ -215,23 +202,6 @@ def tx_stream(cfg: ModemConfig, state: TxState, bits: jnp.ndarray,
     pcm = pcm.reshape(batch + (nframes, nsym * cfg.cycles))
     return state._replace(fir_tail=fir_tail, nco_phase=phase,
                           diff_phase=diff_phase), pcm
-
-
-def _use_fused_tx(cfg: ModemConfig, batch, nsym_total: int,
-                  doppler_hz_per_s: float) -> bool:
-    from qpsk_tpu.ops.pallas.tx_kernel import tx_supported
-    if doppler_hz_per_s or cfg.fir_precision != "fast" \
-            or cfg.nco_mode != "fast":
-        return False
-    if cfg.tx_impl == "pallas":
-        # forcing is allowed beyond the auto gate's conservative geometry
-        # preferences (interpret-mode tests run odd batches — the wrapper
-        # pads); sizes that would produce WRONG output (un-tiled symbol
-        # counts) are refused loudly by tx_modulate_fused's own assert
-        return True
-    return (cfg.tx_impl == "auto"
-            and jax.default_backend() == "tpu"
-            and tx_supported(cfg, batch, nsym_total))
 
 
 def rx_acquire_hz(cfg: ModemConfig, pcm: jnp.ndarray,
@@ -367,8 +337,8 @@ def rx_stream(cfg: ModemConfig, state: RxState, pcm: jnp.ndarray):
     * **fused** (default): the whole stream is one mix + one block FIR +
       batched per-frame timing/decimation + ONE Costas scan across all
       symbols.  Only the Costas recurrence is sequential; every fixed cost
-      is paid once.  This is the TPU fast path (~5x over the frame scan:
-      the per-frame scan structure, not the math, dominated).
+      is paid once.  The Costas loop runs as the fused kernel on the GPU
+      (ops/pallas/costas_kernel.py) and as a ``lax.scan`` elsewhere.
     * **frame scan** (parity mode, ``nco_mode == "exact"``): scans
       ``rx_frame`` like the C loop, renormalizing the NCO once per frame
       (qpsk.c:120) — bit-faithful to the reference's per-frame seams.
@@ -397,29 +367,6 @@ def _rx_stream_scan(cfg: ModemConfig, state: RxState, pcm: jnp.ndarray):
     return state, outs
 
 
-def _use_fused_frontend(cfg: ModemConfig, batch, fsz: int,
-                        nframes: int) -> bool:
-    from qpsk_tpu.ops.pallas.frontend_kernel import frontend_supported
-    if cfg.frontend_impl == "pallas":
-        # forcing past the auto gate's geometry preferences is fine (the
-        # wrapper pads channels; interpret-mode tests rely on it), but a
-        # config whose SEMANTICS the kernel does not implement must fail
-        # loudly: silently substituting power timing for a tracking
-        # timing PLL (or bf16 filtering for the exact parity path) is the
-        # silent-degradation class ops/timing.py warns about
-        if cfg.timing_mode != "power" or cfg.fir_precision != "fast":
-            raise ValueError(
-                "frontend_impl='pallas' forced but the fused kernel only "
-                "implements timing_mode='power' with fir_precision="
-                "'fast' (got timing_mode="
-                f"{cfg.timing_mode!r}, fir_precision={cfg.fir_precision!r});"
-                " use frontend_impl='auto' to fall back gracefully")
-        return True
-    return (cfg.frontend_impl == "auto"
-            and jax.default_backend() == "tpu"
-            and frontend_supported(cfg, batch, fsz, nframes))
-
-
 def frontend_xla(cfg: ModemConfig, pcm: jnp.ndarray, nco_phase: CF32,
                  fir_tail: CF32):
     """Staged XLA front-end over (..., nframes, frame_size) int16 PCM,
@@ -429,7 +376,7 @@ def frontend_xla(cfg: ModemConfig, pcm: jnp.ndarray, nco_phase: CF32,
     Covers the power-timing fast path (fir_precision "fast", nco "fast");
     the state contract matches the other lowerings (mixed-domain
     ``fir_tail``, unit NCO phasor), so calls chain interchangeably with
-    the Pallas kernel and the per-frame scan.  Returns
+    the per-frame scan.  Returns
     (picks CF32 (..., nframes, nsym), index (..., nframes) int32,
     new_nco_phase, new_fir_tail).
     """
@@ -468,138 +415,30 @@ def _use_modulated_xla(cfg: ModemConfig) -> bool:
             and cfg.nco_mode == "fast")
 
 
-def _use_tm_path(cfg: ModemConfig, batch, fsz: int, nframes: int,
-                 use_pallas_costas: bool) -> bool:
-    """The zero-glue fast path: front-end kernel emits one-frame-delayed,
-    TIME-MAJOR picks straight into the fused Costas kernel — no host delay
-    concat, no (C, T) fold transpose, block-rate freq trace.  Needs both
-    kernels engaged; the frame-rate AGC rides it (gains computed from the
-    tm planes, applied in-register by the Costas kernel — ops/agc.py),
-    but the CMA equalizer is a real filtering stage and still forces the
-    composed path."""
-    from qpsk_tpu.ops.pallas.frontend_kernel import frontend_tm_supported
-    if not use_pallas_costas or cfg.eq_taps > 0:
-        return False
-    if cfg.frontend_impl not in ("auto", "pallas"):
-        return False
-    if cfg.frontend_impl == "auto" and jax.default_backend() != "tpu":
-        return False
-    return (len(batch) == 1
-            and frontend_tm_supported(cfg, batch, fsz, nframes))
+def _use_costas_kernel(cfg: ModemConfig) -> bool:
+    """The fused Costas kernel (ops/pallas/costas_kernel.py) or the
+    ``lax.scan`` lowering.  "auto" takes the kernel on the GPU only; a
+    forced "pallas" off the GPU raises in the kernel unless the caller
+    asked for interpret mode."""
+    if cfg.costas_impl == "pallas":
+        return True
+    return cfg.costas_impl == "auto" and jax.default_backend() == "gpu"
 
 
-def _rx_stream_fused_padded(cfg: ModemConfig, state: RxState,
-                            pcm: jnp.ndarray):
-    """A lone stream (or any non-128-multiple channel batch) rides the
-    fused kernels by zero-padding the channel axis to the lane granule:
-    the ``lax.scan`` Costas lowering pays ~1.7 us of per-step overhead
-    per symbol (CLAUDE.md) while the kernel pays ~0.12 us/step regardless
-    of how many of its 128 lanes are live — a single real-time receiver
-    chain gets ~10x from riding dead lanes.  The kernel is bit-exact per
-    channel, so the live channels' outputs equal the scan's; dead-channel
-    outputs (zeros in, garbage out) are sliced away, and the padded
-    nco phasors are unit (zeros would NaN through cnormalize).  A
-    channel-less stream ((nframes, frame_size) PCM, batch == ()) gets a
-    singleton channel axis first and is squeezed back on the way out."""
-    squeeze = pcm.ndim == 2
-    if squeeze:
-        pcm = pcm[None]
-        state = jax.tree.map(lambda x: x[None], state)
-    c = pcm.shape[0]
-    cpad = (-c) % 128
-
-    def pad(x):
-        return jnp.concatenate(
-            [x, jnp.zeros((cpad,) + x.shape[1:], x.dtype)])
-
-    state_p = jax.tree.map(pad, state)
-    state_p = state_p._replace(nco_phase=CF32(
-        jnp.concatenate([state.nco_phase.re, jnp.ones((cpad,), jnp.float32)]),
-        jnp.concatenate([state.nco_phase.im,
-                         jnp.zeros((cpad,), jnp.float32)])))
-    new_p, out_p = _rx_stream_fused(cfg, state_p, pad(pcm))
-    unpad = (lambda x: x[0]) if squeeze else (lambda x: x[:c])
-    return jax.tree.map(unpad, new_p), jax.tree.map(unpad, out_p)
-
-
-def _rx_stream_fused(cfg: ModemConfig, state: RxState, pcm: jnp.ndarray):
+def _rx_stream_fused(cfg: ModemConfig, state: RxState, pcm: jnp.ndarray,
+                     interpret: bool = False):
     batch = pcm.shape[:-2]
     nframes, fsz = pcm.shape[-2], pcm.shape[-1]
     nsf = cfg.symbols_per_frame
     n = nframes * fsz
 
-    if (cfg.costas_impl == "auto" and jax.default_backend() == "tpu"
-            and (len(batch) == 0
-                 or (len(batch) == 1 and batch[0] % 128 != 0))):
-        return _rx_stream_fused_padded(cfg, state, pcm)
-
     params = costas_ops.costas_params(cfg.loop_bw, cfg.damping,
                                       cfg.min_freq, cfg.max_freq)
     gear = _gear_for(cfg)
-    # generic-family constellations run the kernel's decision-directed
-    # mode: detector constants via SMEM, bit-identical to the scan
-    # (modfam.dd_constants; ops/pallas/costas_kernel.py)
-    mod = _mod_for(cfg)
-    dd = (cfg.modulation, cfg.agc_target) if mod is not None else None
-    use_pallas = cfg.costas_impl == "pallas" or (
-        cfg.costas_impl == "auto"
-        and jax.default_backend() == "tpu"
-        and len(batch) == 1 and batch[0] % 128 == 0)
-
-    if _use_tm_path(cfg, batch, fsz, nframes, use_pallas):
-        from qpsk_tpu.ops.pallas import costas_kernel
-        from qpsk_tpu.ops.pallas.frontend_kernel import rx_frontend_fused_tm
-        zr, zi, index, nco_phase, fir_tail, decim_delay, powers = \
-            rx_frontend_fused_tm(cfg, pcm, state.nco_phase, state.fir_tail,
-                                 state.decim_delay)
-        agc_state = state.agc
-        gains = None
-        if cfg.agc:
-            # frame-rate AGC on the zero-glue path: per-frame powers come
-            # from the front-end kernel (computed in VMEM while it holds
-            # the picks — the XLA-side measurement re-read the full
-            # symbol planes and cost 16QAM+AGC ~19% of the RX rate); the
-            # gain recursion runs on the tiny (F, C) plane and the Costas
-            # kernel applies the gains in-register.  All values
-            # bit-identical to the composed agc_stream (ops/agc.py).
-            from qpsk_tpu.ops import agc as agc_ops
-            if powers is not None:
-                agc_state, g_cf = agc_ops.agc_gains(
-                    state.agc, powers.T, cfg.agc_target, cfg.agc_mu)
-                gains = g_cf.T
-            else:
-                agc_state, gains = agc_ops.agc_gains_tm(
-                    state.agc, zr, zi, nframes, cfg.agc_target, cfg.agc_mu)
-        # the kernel also slices the constellation in-line: QPSK's
-        # diagonal slicer emits packed dibits (0.25 B/symbol), the generic
-        # family's DD mode emits packed Gray labels (0.5 B/symbol) —
-        # consumers that only need bits never re-read the full-rate derot
-        # planes, and the composed path is HBM-bound, so this is pure
-        # bandwidth back.
-        emit_bits = (not cfg.differential and cfg.slicer == "diagonal"
-                     and mod is None)
-        emit_label = not cfg.differential and mod is not None
-        cstate, derot_tm, freq_frames, bits = \
-            costas_kernel.costas_run_pallas_tm(
-                state.costas, zr, zi, params, gear=gear, trace_every=nsf,
-                emit_bits=emit_bits, emit_label=emit_label, dd=dd,
-                gains=gains)
-        # (T, C) -> (C, T): a layout view the slicer/output consumers fuse
-        derot = CF32(derot_tm.re.T, derot_tm.im.T)
-        return _rx_stream_emit(cfg, state, derot, freq_frames, index,
-                               cstate, nco_phase, fir_tail, decim_delay,
-                               state.timing, agc_state, state.eq,
-                               batch, nframes, nsf, bits=bits)
+    use_kernel = _use_costas_kernel(cfg)
 
     timing_state = state.timing
-    if _use_fused_frontend(cfg, batch, fsz, nframes):
-        # ONE Pallas pass: int16 -> FIR(modulated taps) -> timing ->
-        # decimate -> pick phasor (ops/pallas/frontend_kernel.py) — same
-        # state contract as below
-        from qpsk_tpu.ops.pallas.frontend_kernel import rx_frontend_fused
-        picks, index, nco_phase, fir_tail = rx_frontend_fused(
-            cfg, pcm, state.nco_phase, state.fir_tail)
-    elif _use_modulated_xla(cfg):
+    if _use_modulated_xla(cfg):
         picks, index, nco_phase, fir_tail = frontend_xla(
             cfg, pcm, state.nco_phase, state.fir_tail)
     else:
@@ -632,8 +471,12 @@ def _rx_stream_fused(cfg: ModemConfig, state: RxState, pcm: jnp.ndarray):
                          picks.im[..., :-1, :]], axis=-2))
     decim_delay = CF32(picks.re[..., -1, :], picks.im[..., -1, :])
 
+    # the kernel applies the frame-rate AGC gains as it loads each symbol;
+    # the CMA equalizer sits between the AGC and the loop, so with it on
+    # the gains are applied here
+    agc_in_kernel = use_kernel and cfg.agc and cfg.eq_taps == 0
     agc_state = state.agc
-    if cfg.agc:
+    if cfg.agc and not agc_in_kernel:
         # frame-rate AGC (ops/agc.py): normalize unknown input levels to
         # the nominal symbol RMS before the amplitude-sensitive stages
         # (Costas error gain, CMA modulus target)
@@ -653,27 +496,30 @@ def _rx_stream_fused(cfg: ModemConfig, state: RxState, pcm: jnp.ndarray):
 
     symbols = CF32(delayed.re.reshape(batch + (nframes * nsf,)),
                    delayed.im.reshape(batch + (nframes * nsf,)))
-    if use_pallas and mod is not None and not cfg.differential:
-        # generic family on the composed kernel path: run the tm entry
-        # directly so the DD mode's packed-label slicer engages here too
-        # (same transpose fold costas_run_pallas_traced performs)
+    if use_kernel:
         from qpsk_tpu.ops.pallas import costas_kernel
-        cstate, derot_tm, freq_frames, bits = \
-            costas_kernel.costas_run_pallas_tm(
-                state.costas, symbols.re.T, symbols.im.T, params,
-                trace_every=nsf, emit_label=True, dd=dd)
-        derot = CF32(derot_tm.re.T, derot_tm.im.T)
-        return _rx_stream_emit(cfg, state, derot, freq_frames, index,
-                               cstate, nco_phase, fir_tail, decim_delay,
-                               timing_state, agc_state, eq_state,
-                               batch, nframes, nsf, bits=bits)
-    if use_pallas:
-        from qpsk_tpu.ops.pallas import costas_kernel
-        # block-rate freq trace: only the frame-boundary values the
-        # readback consumes are ever written (trace_every=nsf)
-        cstate, derot, freq_frames = costas_kernel.costas_run_pallas_traced(
-            state.costas, symbols, params, gear=gear, trace_every=nsf,
-            dd=dd)
+        # the kernel wants time-major (T, C) planes: flatten the batch
+        c = int(np.prod(batch, dtype=np.int64))
+        t = nframes * nsf
+        zr = symbols.re.reshape(c, t).T
+        zi = symbols.im.reshape(c, t).T
+        gains = None
+        if agc_in_kernel:
+            from qpsk_tpu.ops import agc as agc_ops
+            est, gains = agc_ops.agc_gains_tm(
+                state.agc.reshape(c), zr, zi, nframes, cfg.agc_target,
+                cfg.agc_mu)
+            agc_state = est.reshape(batch)
+        mod = _mod_for(cfg)
+        cstate, derot_tm, freq_frames = costas_kernel.costas_run_tm(
+            jax.tree.map(lambda x: x.reshape(c), state.costas), zr, zi,
+            params, gear=gear, trace_every=nsf,
+            dd=(cfg.modulation, cfg.agc_target) if mod is not None else None,
+            gains=gains, interpret=interpret)
+        cstate = jax.tree.map(lambda x: x.reshape(batch), cstate)
+        derot = CF32(derot_tm.re.T.reshape(batch + (t,)),
+                     derot_tm.im.T.reshape(batch + (t,)))
+        freq_frames = freq_frames.reshape(batch + (nframes,))
     elif gear is not None:
         cstate, derot, freq_trace = costas_ops.costas_run_gear_traced(
             state.costas, symbols, params, gear, unroll=8)
@@ -683,23 +529,12 @@ def _rx_stream_fused(cfg: ModemConfig, state: RxState, pcm: jnp.ndarray):
             state.costas, symbols, params, unroll=8,
             detector=_detector_for(cfg))
         freq_frames = freq_trace.reshape(batch + (nframes, nsf))[..., -1]
-    return _rx_stream_emit(cfg, state, derot, freq_frames, index, cstate,
-                           nco_phase, fir_tail, decim_delay, timing_state,
-                           agc_state, eq_state, batch, nframes, nsf)
 
-
-def _rx_stream_emit(cfg: ModemConfig, state: RxState, derot: CF32,
-                    freq_frames: jnp.ndarray, index: jnp.ndarray,
-                    cstate, nco_phase, fir_tail, decim_delay,
-                    timing_state, agc_state, eq_state,
-                    batch, nframes: int, nsf: int, bits=None):
-    """Shared back half of the fused RX lowerings: slice bits (unless the
-    Costas kernel already emitted them), assemble RxOut (freq readback per
-    frame boundary, qpsk.c:217), thread state."""
+    # slice, read the frequency back per frame boundary (qpsk.c:217)
     diff_prev = state.diff_prev
     if cfg.differential:
         bits, diff_prev = differential.diff_decode_symbols(derot, diff_prev)
-    elif bits is None:
+    else:
         bits = _slice_bits(cfg, derot)
     out = RxOut(
         symbols=CF32(derot.re.reshape(batch + (nframes, nsf)),

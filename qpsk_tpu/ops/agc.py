@@ -13,9 +13,9 @@ amplitude-sensitive stages:
 * the CMA equalizer's constant-modulus target R (ops/equalizer.py) is an
   absolute amplitude.
 
-Design, TPU-first (the same shape as the frame-rate timing PLL and the
-block-CMA equalizer): a per-frame RMS measurement over the decimated
-symbols (nsym-wide, fully batched VPU work) drives a one-pole gain
+Design (the same shape as the frame-rate timing PLL and the block-CMA
+equalizer): a per-frame RMS measurement over the decimated symbols
+(nsym-wide, fully batched) drives a one-pole gain
 estimate carried across frames/chunks; each frame is scaled by
 ``target / rms_est``.  The sequential chain is nframes long (one `lax.scan`
 already paid for by the equalizer path), not nsamples.  Timing estimation,
@@ -27,11 +27,11 @@ State is a single (...,) float32 smoothed-RMS estimate; 0 means "unset"
 (the first frame seeds it with its own measurement — instant coarse
 acquisition, then ``mu``-smoothed tracking).
 
-**Cross-lowering determinism** (round 4): the zero-glue tm path applies
-the gains INSIDE the fused Costas kernel (``costas_run_pallas_tm(gains=)``)
-while the composed path scales the symbol planes in XLA, and a 1-ULP gain
-difference between the two would diverge the carrier-loop trajectories
-from that frame on (the DD-kernel hazard class, CLAUDE.md).  So every
+**Cross-layout determinism**: the fused Costas kernel applies the gains
+computed from time-major planes (``agc_gains_tm``) as it loads each symbol,
+while the scan path scales the channel-major planes in XLA, and a 1-ULP
+gain difference between the two would diverge the carrier-loop
+trajectories from that frame on.  So every
 value-producing reduction here is a FIXED expression tree of elementwise
 ops — a halving-tree power sum (layout cannot reorder elementwise adds,
 unlike an XLA ``reduce``) with the squares and the one-pole update's
@@ -73,11 +73,8 @@ def _frame_power(re: jnp.ndarray, im: jnp.ndarray,
     axis = axis % p.ndim
     n = p.shape[axis]
     inv = np.float32(1.0 / n)
-    # HALVES pairing (p[..k..] + p[..k + n/2..]), not adjacent pairs: the
-    # same tree runs inside the fused front-end kernel (contiguous lane
-    # slices, which Mosaic lowers well; adjacent-pair strided slices do
-    # not) — the two implementations must pair identically to produce
-    # bit-identical powers
+    # HALVES pairing (p[..k..] + p[..k + n/2..]): contiguous slices, the
+    # same tree whatever axis carries the symbols
     while n > 1 and n % 2 == 0:
         lo = jax.lax.slice_in_dim(p, 0, n // 2, axis=axis)
         hi = jax.lax.slice_in_dim(p, n // 2, n, axis=axis)
@@ -129,9 +126,8 @@ def agc_gains(rms_est: jnp.ndarray, power: jnp.ndarray, target: float,
         est = _est_update(est, rms, mu)
         return est, _gain(est, target)
 
-    # unroll: the body is a handful of (C,)-wide VPU ops with a pinned
-    # product — as a rolled scan each step lowers to its own tiny launch
-    # (~10 us on the relayed backend, ~150 us per 16-frame pass);
+    # unroll: the body is a handful of (C,)-wide ops with a pinned
+    # product — as a rolled scan each step lowers to its own tiny launch;
     # unrolling fuses the chain without touching the op sequence
     rms_est, g = jax.lax.scan(step, rms_est, jnp.moveaxis(power, -1, 0),
                               unroll=min(int(power.shape[-1]), 16))
@@ -154,8 +150,8 @@ def agc_gains_tm(rms_est: jnp.ndarray, zr_tm: jnp.ndarray,
                  zi_tm: jnp.ndarray, nframes: int, target: float,
                  mu: float):
     """Per-frame AGC gains from TIME-MAJOR (T, C) symbol planes (the fused
-    front-end kernel's output layout) — for ``costas_run_pallas_tm``'s
-    in-kernel gain application.
+    Costas kernel's input layout) — for its in-kernel gain application
+    (``costas_kernel.costas_run_tm(gains=)``).
 
     Returns (new_rms_est (C,), gains (nframes, C)), with values
     bit-identical to what ``agc_stream`` computes on the same logical

@@ -5,8 +5,9 @@ The reference is a 2nd-order decision-directed PLL taken from GNU Radio
 instance.  Here the loop is a pure ``(state, symbol) -> (state, out)``
 recurrence run under ``jax.lax.scan``, with the state as an explicit pytree so
 it can be vmapped per channel and sharded with pjit.  The scan is sequential
-in time but arbitrarily wide in channels: batched channels ride the VPU lanes,
-which is how the TPU build hides the serial recurrence.
+in time but arbitrarily wide in channels.  On the GPU each scan step costs
+at least one kernel launch, so the fused kernel
+(ops/pallas/costas_kernel.py) runs the same step inside one launch.
 
 Exact semantics replicated (for parity with the C chain):
 
@@ -30,6 +31,7 @@ from typing import Any, NamedTuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from qpsk_tpu.ops.cplx import CF32, cexp_conj, cmul
 
@@ -86,9 +88,11 @@ def costas_params(loop_bw: float, damping: float = math.sqrt(2.0) / 2.0,
     denom = 1.0 + 2.0 * damping * loop_bw + loop_bw * loop_bw
     alpha = 4.0 * damping * loop_bw / denom
     beta = 4.0 * loop_bw * loop_bw / denom
+    # numpy scalars, not device arrays: they stay concrete under jit, so
+    # the fused kernel can compile them in as constants
     return CostasParams(
-        alpha=jnp.float32(alpha), beta=jnp.float32(beta),
-        max_freq=jnp.float32(max_freq), min_freq=jnp.float32(min_freq))
+        alpha=np.float32(alpha), beta=np.float32(beta),
+        max_freq=np.float32(max_freq), min_freq=np.float32(min_freq))
 
 
 def costas_init(batch_shape=(), phase=0.0, freq=0.0,
@@ -140,10 +144,10 @@ def costas_gear(loop_bw_trk: float,
     shift the gear change by one symbol)."""
     denom = 1.0 + 2.0 * damping * loop_bw_trk + loop_bw_trk * loop_bw_trk
     return CostasGear(
-        alpha_trk=jnp.float32(4.0 * damping * loop_bw_trk / denom),
-        beta_trk=jnp.float32(4.0 * loop_bw_trk * loop_bw_trk / denom),
-        gamma=jnp.float32(gamma), enter=jnp.float32(enter),
-        exit=jnp.float32(exit))
+        alpha_trk=np.float32(4.0 * damping * loop_bw_trk / denom),
+        beta_trk=np.float32(4.0 * loop_bw_trk * loop_bw_trk / denom),
+        gamma=np.float32(gamma), enter=np.float32(enter),
+        exit=np.float32(exit))
 
 
 def phase_detector(z: CF32) -> jnp.ndarray:
@@ -162,6 +166,15 @@ def _wrap_phase(phase: jnp.ndarray) -> jnp.ndarray:
     return phase
 
 
+def _advance(phase, freq, err, alpha, beta, params: CostasParams):
+    """Loop filter, wrap and clamp (costas_loop.c:56-74)."""
+    freq = freq + beta * err
+    phase = (phase + freq) + alpha * err
+    phase = _wrap_phase(phase)
+    freq = jnp.clip(freq, params.min_freq, params.max_freq)
+    return phase, freq
+
+
 def costas_step(state: CostasState, z: CF32, params: CostasParams,
                 detector=phase_detector):
     """One symbol tick: derotate, detect, advance (qpsk.c:196-212).
@@ -171,11 +184,27 @@ def costas_step(state: CostasState, z: CF32, params: CostasParams,
     its decision-directed error (ops/modfam.dd_detector)."""
     out = cmul(z, cexp_conj(state.phase))
     err = detector(out)
-    freq = state.freq + params.beta * err
-    phase = (state.phase + freq) + params.alpha * err
-    phase = _wrap_phase(phase)
-    freq = jnp.clip(freq, params.min_freq, params.max_freq)
+    phase, freq = _advance(state.phase, state.freq, err, params.alpha,
+                           params.beta, params)
     return CostasState(phase=phase, freq=freq), out
+
+
+def gear_update(state: CostasState, out: CF32, params: CostasParams,
+                gear: CostasGear):
+    """The gear-shift half of one tick, given the derotated symbol: lock
+    detector, gear select, advance.  Shared by ``costas_step_gear`` and
+    the fused kernel (ops/pallas/costas_kernel.py)."""
+    err = phase_detector(out)
+    errn = jnp.abs(err) / (jnp.abs(out.re) + jnp.abs(out.im)
+                           + jnp.float32(1e-9))
+    lev = state.lev + gear.gamma * (errn - state.lev)
+    locked = jnp.where(lev < gear.enter, jnp.float32(1.0),
+                       jnp.where(lev > gear.exit, jnp.float32(0.0),
+                                 state.locked))
+    alpha = jnp.where(locked > 0.5, gear.alpha_trk, params.alpha)
+    beta = jnp.where(locked > 0.5, gear.beta_trk, params.beta)
+    phase, freq = _advance(state.phase, state.freq, err, alpha, beta, params)
+    return CostasState(phase=phase, freq=freq, lev=lev, locked=locked)
 
 
 def costas_step_gear(state: CostasState, z: CF32, params: CostasParams,
@@ -189,27 +218,13 @@ def costas_step_gear(state: CostasState, z: CF32, params: CostasParams,
     immaterial to behavior).
 
     The optimization barrier pins ONE evaluation of the derotated symbol:
-    without it XLA duplicates ``out`` into separate fusions (the returned
-    output vs the ``errn`` consumer) whose multiply-adds may FMA-contract
-    differently, drifting the lock level by ULPs between lowerings (found
-    bisecting a scan-vs-Pallas lev mismatch; out/phase/freq were already
-    bit-identical)."""
+    without it XLA may duplicate ``out`` into separate fusions (the
+    returned output vs the ``errn`` consumer) whose multiply-adds
+    FMA-contract differently, so the lock level would see other bits than
+    the output."""
     out = cmul(z, cexp_conj(state.phase))
     out = CF32(*jax.lax.optimization_barrier((out.re, out.im)))
-    err = phase_detector(out)
-    errn = jnp.abs(err) / (jnp.abs(out.re) + jnp.abs(out.im)
-                           + jnp.float32(1e-9))
-    lev = state.lev + gear.gamma * (errn - state.lev)
-    locked = jnp.where(lev < gear.enter, jnp.float32(1.0),
-                       jnp.where(lev > gear.exit, jnp.float32(0.0),
-                                 state.locked))
-    alpha = jnp.where(locked > 0.5, gear.alpha_trk, params.alpha)
-    beta = jnp.where(locked > 0.5, gear.beta_trk, params.beta)
-    freq = state.freq + beta * err
-    phase = (state.phase + freq) + alpha * err
-    phase = _wrap_phase(phase)
-    freq = jnp.clip(freq, params.min_freq, params.max_freq)
-    return CostasState(phase=phase, freq=freq, lev=lev, locked=locked), out
+    return gear_update(state, out, params, gear), out
 
 
 def costas_run_gear_traced(state: CostasState, symbols: CF32,
@@ -242,8 +257,8 @@ def costas_run(state: CostasState, symbols: CF32, params: CostasParams,
     Args:
       state: batch-shaped loop state.
       symbols: ``(..., t)`` CF32, batch shape matching ``state``.
-      unroll: ``lax.scan`` unroll factor (amortizes per-step overhead on
-        TPU; semantics unchanged).
+      unroll: ``lax.scan`` unroll factor (amortizes per-step overhead;
+        semantics unchanged).
       detector: phase-error function (see ``costas_step``).
     Returns:
       (new_state, derotated symbols ``(..., t)``).

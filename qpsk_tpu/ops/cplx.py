@@ -1,10 +1,9 @@
 """Complex arithmetic as explicit (I, Q) float32 pairs.
 
-The reference leans on C99 ``complex float`` (qpsk.h:32-36).  The TPU backend
-used here has no complex dtype support at all, and split real/imaginary
-planes are the better TPU layout anyway: every complex multiply becomes VPU
-float ops, and complex x real-matrix products (the RRC FIR, the DFT) become
-pairs of dense float32 matmuls on the MXU.
+The reference leans on C99 ``complex float`` (qpsk.h:32-36).  Here complex
+signals are split real/imaginary float32 planes: every complex multiply is
+plain float ops that fuse with their neighbours, and complex x real-matrix
+products (the RRC FIR, the DFT) become pairs of dense float32 matmuls.
 
 ``CF32`` is a NamedTuple — hence a pytree — of two equal-shaped float32
 arrays.  All ops are free functions; slicing is done on the fields

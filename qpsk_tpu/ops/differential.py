@@ -26,8 +26,8 @@ here: CRC pass at 10 dB AWGN went from 0.55 (detection) to ~1.0 (coherent).
 The residual Costas ambiguity is k*90 deg, which shifts every turn index
 equally and cancels in the difference — rotation immunity is preserved.
 
-TPU shape: the accumulator is a ``cumsum mod 4`` — fully parallel, no scan;
-the decoder is one shifted complex multiply + sign logic, all VPU work.
+Shape: the accumulator is a ``cumsum mod 4`` — fully parallel, no scan;
+the decoder is one shifted complex multiply + sign logic, all elementwise.
 Streaming carries are one int32 (TX phase index) and one CF32 symbol (RX
 previous symbol) per channel, threaded through Tx/RxState.
 

@@ -6,7 +6,7 @@ is a noiseless spool file, qpsk.c:289-359).  Real audio-band radio links
 VHF channel smears symbols into their neighbors and the Costas+slicer
 chain alone cannot decode through it (see qpsk_tpu/channel.multipath_pcm).
 
-Design, TPU-first (the same shape as the frame-rate timing PLL,
+Design (the same shape as the frame-rate timing PLL,
 ops/timing.timing_track):
 
 * **Constant-modulus algorithm** (Godard), symbol-spaced, running on the
@@ -18,7 +18,7 @@ ops/timing.timing_track):
   per-tap phase (absorbed by the adaptation).
 * **Block (frame-rate) adaptation**: within a frame every output
   ``y_i = sum_k w_k x_{i-k}`` and the CMA gradient are computed fully
-  batched (L shifted slices — VPU work, no gathers); the tap update is
+  batched (L shifted slices, no gathers); the tap update is
   applied once per frame.  The sequential chain is nframes long, not
   nsymbols — 128x shorter than a per-symbol LMS scan, and it rides the
   same ``lax.scan`` the stream already pays for nothing extra.

@@ -1,16 +1,15 @@
-"""DFT with the reference's normalization convention, TPU-first.
+"""DFT with the reference's normalization convention, as matmuls.
 
 Convention (algorithms/fft.c): the forward ``fft``/``fftn`` divide by N
 (fft.c:105-107, 117-119) while ``ifft``/``ifftn`` do **not** normalize
 (fft.c:122-136) — so ``ifft(fft(x)) == x`` with all the 1/N in the forward
 transform.  We reproduce exactly that convention.
 
-Implementation: the TPU path avoids complex dtypes entirely — a DFT of the
-split-plane CF32 signal is two dense real matmuls against precomputed
-cos/sin matrices, which XLA tiles straight onto the MXU.  For the modem's
-transform sizes (NFFT = 512 for acquisition, fft.h:44) the O(N^2) matmul DFT
-is a few hundred kFLOPs — far below one MXU pass — and beats a
-radix-recursion's layout gymnastics.  Host-side numpy twins use np.fft.
+Implementation: no complex dtypes — a DFT of the split-plane CF32 signal is
+two dense real matmuls against precomputed cos/sin matrices.  For the
+modem's transform sizes (NFFT = 512 for acquisition, fft.h:44) the O(N^2)
+matmul DFT is a few hundred kFLOPs per transform.  Host-side numpy twins
+use np.fft.
 """
 
 from __future__ import annotations

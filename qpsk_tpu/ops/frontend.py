@@ -15,11 +15,8 @@ is applied only at the decimated symbol picks (1/cycles rate).  Energies
 for the timing search are carrier-invariant (|Phi| == 1), so the whole
 timing/decimation stage also runs mix-free.
 
-Both fast lowerings build on these helpers — the staged XLA chain
-(``qpsk_tpu.modem.frontend_xla``) and the fused Pallas kernel
-(``ops/pallas/frontend_kernel.py``) — so their operands (and hence their
-bf16 MXU truncations on TPU) stay identical and the two paths keep
-agreeing on near-tie timing picks.
+The staged XLA chain (``qpsk_tpu.modem.frontend_xla``) builds on these
+helpers.
 
 The carried RxState contract is unchanged: ``fir_tail`` stays in the
 *mixed* domain (the parity/scan paths and the time-parallel halo exchange

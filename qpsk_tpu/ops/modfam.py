@@ -2,19 +2,19 @@
 
 The reference is a QPSK-only modem (qpsk.c:58-79 hardcodes the 4-point
 constellation and its slicer).  QPSK stays the specialized flagship here —
-``ops/modmap.py`` + the fused Pallas kernels are bit-exact against the C
-chain and are NOT routed through this module.  This module generalizes the
+``ops/modmap.py`` is bit-exact against the C
+chain and is NOT routed through this module.  This module generalizes the
 same frame/packet stack (RRC pulse shaping, timing, decision-directed
 carrier recovery, CRC/scramble/interleave/FEC framing, sync hunt) to the
 other constellations an audio-band packet-modem deployment actually wants:
 BPSK for the low-SNR end, 8PSK / 16QAM for the high-rate end.
 
-TPU-first shapes, no lane gathers on hot paths:
+Shapes, no gathers on hot paths:
 
 * mapping is a one-hot contraction ``(..., n, M) @ (M,)`` (the 4-entry
   table gather was the round-2 TX compile pathology; CLAUDE.md);
 * slicing / LLRs are dense ``(..., n, M)`` score matrices — M <= 16 rides
-  the lane axis, argmax/max reductions are VPU-exact f32;
+  the last axis, argmax/max reductions are exact f32;
 * soft output is max-log LLRs (sign convention: positive = bit 0, matching
   ``modmap.demod_soft``), computed from the same score matrix under any
   rotation hypothesis by pure relabeling — the distances never change, so
@@ -260,9 +260,9 @@ def demod_soft_mod(sym: CF32, mod: Modulation, scale=1.0,
 
 def dd_constants(mod: Modulation, scale=1.0) -> np.ndarray:
     """Flat float32 detector constants — scaled constellation re/im,
-    |c|^2, then per-family extras — shared verbatim by the scan detector
-    and the fused Pallas kernel's DD mode (ops/pallas/costas_kernel.py):
-    both paths run ``dd_err_ops`` on the SAME float32 values.
+    |c|^2, then per-family extras — shared verbatim by the scan detector,
+    the fused Costas kernel (ops/pallas/costas_kernel.py) and the hard
+    slicer: all run ``dd_err_ops`` on the SAME float32 values.
 
     Layout: ``[cre(M), cim(M), 1/p2(M)] + extras`` where extras is the
     16QAM axis-decision threshold (one scalar) and empty otherwise."""
@@ -271,10 +271,9 @@ def dd_constants(mod: Modulation, scale=1.0) -> np.ndarray:
     cim = (mod.points_im * np.float32(s)).astype(np.float32)
     # INVERSE |c|^2: the error term multiplies by this instead of
     # dividing — a division by a loop-invariant scalar is strength-
-    # reduced to a reciprocal multiply by some lowerings (Mosaic,
-    # per-variant) but not others (XLA:TPU), a 1-ULP slack that diverged
-    # the kernel from the scan on hardware; precomputing the inverse
-    # makes both paths multiply
+    # reduced to a reciprocal multiply by some compilers but not others,
+    # a 1-ULP slack between lowerings; precomputing the inverse makes
+    # every path multiply
     ip2 = (np.float32(1.0)
            / ((mod.points_re ** 2 + mod.points_im ** 2)
               * np.float32(s * s) + np.float32(1e-12))).astype(np.float32)
@@ -286,41 +285,36 @@ def dd_constants(mod: Modulation, scale=1.0) -> np.ndarray:
     return np.concatenate([cre, cim, ip2, np.asarray(extras, np.float32)])
 
 
-def dd_err_ops(name: str, m: int, outr, outi, get, stage,
+def dd_err_ops(name: str, m: int, outr, outi, get,
                want_label: bool = False):
     """The per-step decision-directed error, as ONE literal op program
-    shared by the ``lax.scan`` detector and the fused Pallas kernel — the
-    only way the two lowerings stay bit-identical on every backend.
+    shared by the ``lax.scan`` detector, the fused Costas kernel (which
+    runs the scan's detector) and the hard slicer.
     With ``want_label`` also returns the decided Gray LABEL (int32, same
     shape) — the comparison decisions already pick it, so emitting it is
-    pure int selects that never touch the float error chain (the fused
-    kernel packs these labels in-line, ``emit_label``; the XLA slicer twin
-    is ``slice_labels_cmp``).  Returns ``err`` or ``(err, label)``.
+    pure int selects that never touch the float error chain (the hard
+    slicer ``slice_labels_cmp`` uses them).  Returns ``err`` or
+    ``(err, label)``.
 
-    Two hazards shape this code (both measured on v5e, CLAUDE.md):
+    One hazard shapes this code (CLAUDE.md):
 
     * **Decisions use boundary-exact comparisons only** — sign and |a|>|b|
       tests on the derotated symbol, never score arithmetic: a score like
       ``2*(re*c + im*s) - p2`` contains a fusable mul-add whose FMA
-      contraction differs BETWEEN compilers (Mosaic vs XLA:TPU vs
+      contraction differs BETWEEN compilers (Triton vs XLA:GPU vs
       XLA:CPU) and BETWEEN shapes, so score-compared decisions can flip
       on near-ties one lowering sees and the other doesn't.  All three
       family constellations decide exactly: BPSK by sign, 8PSK by octant
       (sign(re), sign(im), |im|>|re| — its boundaries ARE the axes and
       diagonals), 16QAM per-axis (sign + |axis|>threshold).
-    * **The error products are pinned** via ``stage(u, v)`` — a fusion
-      barrier (scan: ``lax.optimization_barrier``; kernel: a VMEM
-      store/load round trip) so ``(u - v) / c2`` is round(a*b),
-      round(c*d), subtract, scale everywhere: Mosaic otherwise
-      contracts the mul-sub into a single-rounded FMA, 1 ULP off XLA's
-      sequence, which diverges the trajectories from step one.  (QPSK's
-      sign detector never needs this: its products are by ±1, exact
-      under either contraction.)
+
+    The error products ``u - v`` may be FMA-contracted by one compiler
+    and not another, so the kernel and the scan agree to rounding
+    (measured within 3e-6 on the card), not bit for bit.
 
     ``get(i)`` reads the i-th ``dd_constants`` scalar (numpy closure in
-    the scan, SMEM params ref in the kernel); constants selected through
-    exact comparisons are identical in both, so the error arithmetic is
-    elementwise-identical.  Returns the error array.
+    every caller); constants selected through exact comparisons are
+    identical everywhere.
     """
     def const_like(i):
         return jnp.full_like(outr, get(i))
@@ -334,7 +328,7 @@ def dd_err_ops(name: str, m: int, outr, outi, get, stage,
         # labels: 0 -> +1, 1 -> -1 (cim = 0)
         neg = outr < 0.0
         cr = jnp.where(neg, const_like(1), const_like(0))
-        u, v = stage(outi * cr, outr * 0.0)
+        u, v = outi * cr, outr * 0.0
         return ret((u - v) * const_like(2 * m),
                    jnp.where(neg, 1, 0) if want_label else None)
     if name == "8psk":
@@ -343,8 +337,8 @@ def dd_err_ops(name: str, m: int, outr, outi, get, stage,
         # walk of the three boundary bits, so the Gray LABEL has the
         # closed form (s_im << 2) | (s_re << 1) | diag — and the ring
         # constants select through a 3-deep where tree on the same bits
-        # (round 5: the old 7-octant mask sweep put ~35 dependent VPU ops
-        # on the serial DD chain; this is ~16 for the same decisions and
+        # (the old 7-octant mask sweep put ~35 dependent ops on the
+        # serial DD chain; this is ~16 for the same decisions and
         # the SAME selected f32 constants, so trajectories are
         # bit-identical).
         s_im = outi < 0.0
@@ -366,7 +360,7 @@ def dd_err_ops(name: str, m: int, outr, outi, get, stage,
             lab_arr = ((s_im.astype(jnp.int32) << 2)
                        | (s_re.astype(jnp.int32) << 1)
                        | diag.astype(jnp.int32))
-        u, v = stage(outi * cr, outr * ci)
+        u, v = outi * cr, outr * ci
         # 1/|c|^2 uniform on the ring
         return ret((u - v) * const_like(2 * m), lab_arr)
     if name == "16qam":
@@ -375,8 +369,8 @@ def dd_err_ops(name: str, m: int, outr, outi, get, stage,
         # error constants select per axis: cre[(g<<2)|q] is q-invariant
         # (the I level) and cim[(i<<2)|g] i-invariant, and 1/|c|^2 depends
         # only on the two far/near flags — 9 selects total instead of the
-        # old 16-mask per-label sweep (~64 dependent VPU ops on the
-        # serial DD chain; round-5 16QAM rate work).  Same comparisons,
+        # old 16-mask per-label sweep (~64 dependent ops on the serial
+        # DD chain).  Same comparisons,
         # same selected f32 table values: trajectories are bit-identical.
         thr = const_like(3 * m)
         neg_i, far_i = outr < 0.0, jnp.abs(outr) > thr
@@ -402,7 +396,7 @@ def dd_err_ops(name: str, m: int, outr, outi, get, stage,
             gq = jnp.where(neg_q, jnp.where(far_q, 0, 1),
                            jnp.where(far_q, 2, 3))
             lab = (gi << 2) | gq
-        u, v = stage(outi * cr, outr * ci)
+        u, v = outi * cr, outr * ci
         return ret((u - v) * ic2, lab)
     raise ValueError(f"no decision program for modulation {name!r}")
 
@@ -410,18 +404,15 @@ def dd_err_ops(name: str, m: int, outr, outi, get, stage,
 def slice_labels_cmp(sym: CF32, mod: Modulation, scale=1.0) -> jnp.ndarray:
     """Minimum-distance decisions via the COMPARISON program — the exact
     decision the DD carrier loop itself makes (``dd_err_ops``), so the hard
-    bit stream always agrees with the loop's decisions, and — because every
-    decision is a boundary-exact sign/|a|>|b|/threshold comparison — the
-    fused kernel's in-line packed labels (``emit_label``) match this XLA
-    twin bit-for-bit on every backend (score-argmax decisions do not
-    survive cross-lowering FMA differences; CLAUDE.md).  Geometrically
+    bit stream always agrees with the loop's decisions, and every decision
+    is a boundary-exact sign/|a|>|b|/threshold comparison (score-argmax
+    decisions do not survive cross-lowering FMA differences; CLAUDE.md).  Geometrically
     identical to ``slice_labels`` (the Gray regions ARE the min-distance
     regions for the whole family); the two can differ only on exact
     floating-point boundary ties."""
     consts = dd_constants(mod, scale)
     _, lab = dd_err_ops(mod.name, mod.M, sym.re, sym.im,
-                        get=lambda i: consts[i],
-                        stage=lambda u, v: (u, v), want_label=True)
+                        get=lambda i: consts[i], want_label=True)
     return lab
 
 
@@ -452,14 +443,8 @@ def dd_detector(mod: Modulation, scale=1.0):
     consts = dd_constants(mod, scale)
 
     def detector(z: CF32) -> jnp.ndarray:
-        # stage = identity: XLA does not contract the products' mul-sub on
-        # TPU (measured — it matches numpy's mul/mul/sub), and in
-        # interpret mode the kernel runs under this same compiler, so
-        # structural identity IS bit identity.  Only the Mosaic lowering
-        # contracts, and the kernel stages its own side (scratch planes).
         return dd_err_ops(mod.name, mod.M, z.re, z.im,
-                          get=lambda i: consts[i],
-                          stage=lambda u, v: (u, v))
+                          get=lambda i: consts[i])
 
     return detector
 

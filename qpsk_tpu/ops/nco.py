@@ -4,7 +4,7 @@ The reference runs two free-running complex NCOs, one per direction, as a
 sequential per-sample phasor product ``phase *= rect`` (qpsk.c:115, 248-251)
 renormalized once per frame to stop magnitude drift (qpsk.c:120, 253).
 
-TPU-first design: the phasor sequence is a pure geometric series, so the
+Design: the phasor sequence is a pure geometric series, so the
 mixer is the closed form ``phase0 * exp(j * omega * (1 + arange(n)))`` — an
 embarrassingly parallel ramp with a single complex phasor carry
 (``mode="fast"``).  ``mode="exact"`` reproduces the C sequential float32

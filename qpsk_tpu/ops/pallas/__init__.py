@@ -1,10 +1,8 @@
-"""Pallas TPU kernels for the modem's hot recurrences.
+"""Pallas kernels for the GPU (Triton route).
 
-The only truly serial computation in the RX chain is the Costas loop; XLA's
-``lax.scan`` pays per-step op-dispatch overhead (~1.7 us/step measured on
-v5e), so the loop is fused into a single Mosaic kernel with channels on the
-VPU lanes (ops/pallas/costas_kernel.py).  Everything else in the pipeline is
-matmuls and elementwise ops that XLA already lowers well.
+The only serial computation in the RX chain is the Costas loop; on the GPU a
+``lax.scan`` pays a kernel launch per step, so the loop is fused into one
+kernel with channels across threads (ops/pallas/costas_kernel.py).
+Everything else in the pipeline is matmuls and elementwise work that XLA
+compiles well as it stands.
 """
-
-from qpsk_tpu.ops.pallas.costas_kernel import costas_run_pallas

@@ -1,25 +1,36 @@
-"""Fused Costas-loop kernel (Pallas / Mosaic TPU).
+"""Fused Costas-loop kernel (Pallas, Triton route, for the GPU).
 
 The Costas recurrence (costas_loop.c:56-74 semantics, see ops/costas.py) is
-the modem's serialization bottleneck: each symbol's derotation uses the
-phase updated by the previous symbol.  ``lax.scan`` is correct but pays
-XLA's per-step op overhead (~1.7 us/step measured on v5e at 1024 channels —
-2048-symbol blocks cost ~3.4 ms).  This kernel runs the whole loop as ONE
-Mosaic kernel: a ``fori_loop`` over symbols with the batch of channels on
-the VPU lanes, state held in VMEM scratch, symbol blocks streamed by the
-Pallas pipeline.
+the modem's one serial computation: each symbol's derotation uses the phase
+updated by the previous symbol.  ``lax.scan`` is correct, but on the GPU
+every scan step launches the step's fused kernels again, so a pass costs a
+launch per symbol (or per unrolled group) whatever the channel count.  This
+kernel runs the whole loop inside ONE launch.
 
-Layout: time-major with the C channels of each step folded into ``sg``
-sublane rows of ``C/sg`` lanes (``(T*sg, C/sg)`` planes) — a ``(1, C)``
-step row would light up only one of the 8 sublanes in every vreg, wasting
-7/8 of the VPU (folding measured 2.4x on v5e at 2048 channels).  The grid
-is ``(L // LT, T // TT)``; TPU grids execute sequentially with the last
-axis fastest, so per-lane-tile state persists in scratch across the T
-tiles (initialized at j == 0, flushed at the last j).
+Layout and schedule:
 
-Semantics are bit-identical to ``costas_run`` (same op order as the C
-loop); tests assert exact agreement against the ``lax.scan`` version in
-interpret mode and on hardware.
+* the symbol planes are time-major ``(T, C)`` (flattened), so the channel
+  rows a step reads are contiguous and every load is coalesced;
+* the grid is one program per block of ``bc`` channels (a power of two,
+  masked past ``C``): one channel per thread, one warp per program, so
+  8192 channels give 256 programs across the card's SMs and a lone
+  channel still runs;
+* the time loop runs inside the program (``lax.fori_loop``) with the loop
+  state in registers.  Time rows are loaded in chunks of ``tc`` (a power
+  of two): the rows of chunk k+1 are issued while chunk k steps, so their
+  latency hides behind the serial chain.  ``T`` need not be a multiple of
+  ``tc``: the remainder is a static tail after the loop.
+
+The step is the scan's own (``costas_ops.costas_step`` with the config's
+detector, or ``costas_ops.gear_update`` for the gear-shift loop), so every
+mode ``rx_stream`` uses runs here: the QPSK sign detector, the gear shift,
+the decision-directed detector of the generic family, and per-frame AGC
+gains applied to each symbol as it is loaded.  Slicing stays in XLA.  The
+two lowerings agree to rounding (the compilers contract multiply-adds
+differently), not bit for bit.
+
+Off the GPU the kernel runs only in Pallas interpret mode, and only when the
+caller asks for it (``interpret=True``); tests do.
 """
 
 from __future__ import annotations
@@ -28,569 +39,193 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltr
 
-from qpsk_tpu.ops.costas import CostasGear, CostasParams, CostasState, TAU
-from qpsk_tpu.ops.cplx import CF32
+from qpsk_tpu.ops import costas as costas_ops
+from qpsk_tpu.ops.costas import CostasGear, CostasParams, CostasState
+from qpsk_tpu.ops.cplx import CF32, cexp_conj, cmul
 
-# apply the frame-rate AGC gains by pre-scaling the whole input tile into
-# VMEM scratch ahead of the serial loop, instead of a per-step gain load
-# + multiply on the issue-bound recurrence chain (same IEEE multiply per
-# element — bit-identical).  Round-5 measured TIE (don't retry): qpsk+agc
-# 24.80-24.84 prescaled vs 24.76-24.88 per-step across 3 interleaved
-# rounds — Mosaic already schedules the recurrence-independent gain
-# multiply off the serial chain, and the prescale costs 2 tile-sized VMEM
-# scratch planes.  The AGC's real cost is the MEASUREMENT side (isolation
-# probe: apply-only runs at the no-AGC rate; see ROUND5_NOTES).  NOT a
-# jit static arg: flip only with _costas_pallas_tc's cache cleared.
-_AGC_PRESCALE = False
+_TC = 16     # time rows per chunk
 
 
-def _kernel(params_ref, zr_ref, zi_ref, *refs, gear: bool, sg: int,
-            trace_blocks: bool, emit_bits: bool, emit_label: bool,
-            dd_kind: str, agc_nsf: int, interpret_mode: bool):
-    # ref layout (gear fields only when gear=True):
-    #   inputs:  phase0, freq0, [lev0, locked0], [agc gains]
-    #   outputs: out_re, out_im, freq_trace, phase_out, freq_out,
-    #            [lev_out, locked_out]
-    #   scratch: phase_s, freq_s, [lev_s, locked_s]
-    # Channel groups ride the SUBLANES: each time step's row block is
-    # (sg, LT) — sg channel groups x LT lanes — so every VPU op uses all
-    # 8 sublanes of its vregs instead of 1/8 of a (1, C) row (measured
-    # 2.4x on v5e at 2048 channels; the recurrence itself stays strictly
-    # sequential over time).
-    ns = 4 if gear else 2
-    nouts = ns + 3 + (1 if (emit_bits or emit_label) else 0)
-    ins, rest = refs[:ns], refs[ns:]
-    if agc_nsf:
-        g_ref, rest = rest[0], rest[1:]
-    outs, scr = rest[:nouts], rest[nouts:]
+def _pick_bc(c: int) -> int:
+    """Channels per program: one warp's worth (32), fewer for tiny batches
+    (never below 16, Triton's smallest comfortable block)."""
+    bc = 16
+    while bc < 32 and bc < c:
+        bc *= 2
+    return bc
+
+
+def _kernel(*refs, t_len: int, c_len: int, bc: int, tc: int, every: int,
+            ns: int, agc_nsf: int, step):
+    # refs: zr, zi, state_in[ns], [gains] | out_re, out_im, ftrace,
+    # state_out[ns]; every plane flattened time-major (t * C + channel)
+    zr_ref, zi_ref = refs[0], refs[1]
+    st_in = refs[2:2 + ns]
+    g_ref = refs[2 + ns] if agc_nsf else None
+    outs = refs[2 + ns + (1 if agc_nsf else 0):]
     or_ref, oi_ref, ft_ref = outs[0], outs[1], outs[2]
-    if emit_bits or emit_label:
-        pk_ref = outs[3 + ns]     # packed dibits/labels plane (last out)
-        pk_s = scr[-1]            # (sg, LT) int32 accumulator
-        scr = scr[:-1]
-    if dd_kind:
-        # two (sg, LT) f32 staging planes for the DD error products (see
-        # the dd branch below)
-        du_s, dv_s = scr[-2], scr[-1]
-        scr = scr[:-2]
+    st_out = outs[3:3 + ns]
 
-    j = pl.program_id(1)
-    nj = pl.num_programs(1)
-    tt = zr_ref.shape[0] // sg
+    ch = pl.program_id(0) * bc + jnp.arange(bc, dtype=jnp.int32)
+    cmask = ch < c_len
 
-    if agc_nsf and _AGC_PRESCALE:
-        # hoist the frame-rate AGC gain application OUT of the serial
-        # recurrence: the per-step ``g_ref[t // nsf]`` load + two
-        # multiplies sat on the issue-bound dependency chain (measured:
-        # AGC cost the composed path ~12-14% on EVERY modulation, QPSK
-        # included).  Scaling the whole tile here is the SAME IEEE
-        # multiply per element (bit-identical), done as tt independent
-        # row-block ops the scheduler can run ahead of the loop.
-        zs_r, zs_i = scr[-2], scr[-1]
-        scr = scr[:-2]
-        for t0 in range(tt):
-            gv0 = g_ref[t0 // agc_nsf, :, :]
-            zs_r[pl.ds(t0 * sg, sg), :] = \
-                zr_ref[pl.ds(t0 * sg, sg), :] * gv0
-            zs_i[pl.ds(t0 * sg, sg), :] = \
-                zi_ref[pl.ds(t0 * sg, sg), :] * gv0
-        zr_src, zi_src = zs_r, zs_i
-    else:
-        zr_src, zi_src = zr_ref, zi_ref
+    def load_rows(t0, n, live):
+        rows = []
+        for j in range(n):
+            t = t0 + j
+            m = cmask & live
+            zr = pltr.load(zr_ref.at[t * c_len + ch], mask=m, other=0.0)
+            zi = pltr.load(zi_ref.at[t * c_len + ch], mask=m, other=0.0)
+            if agc_nsf:
+                # frame-rate AGC gain: one multiply per symbol, off the
+                # serial chain
+                g = pltr.load(
+                    g_ref.at[jax.lax.div(t, agc_nsf) * c_len + ch],
+                    mask=m, other=0.0)
+                zr, zi = zr * g, zi * g
+            rows.append((zr, zi))
+        return tuple(rows)
 
-    alpha = params_ref[0]
-    beta = params_ref[1]
-    min_freq = params_ref[2]
-    max_freq = params_ref[3]
-    if gear:
-        alpha_trk = params_ref[4]
-        beta_trk = params_ref[5]
-        gamma = params_ref[6]
-        enter = params_ref[7]
-        exit_ = params_ref[8]
-    if dd_kind:
-        # hoist the detector constants out of the serial loop (SMEM reads
-        # inside the per-symbol step would re-issue every iteration)
-        from qpsk_tpu.ops.modfam import get as _mod_get
-        _m = _mod_get(dd_kind).M
-        _n_dd = 3 * _m + (1 if dd_kind == "16qam" else 0)
-        dd_c = [params_ref[4 + i] for i in range(_n_dd)]
+    def run_rows(t0, rows, st):
+        for j, (zr, zi) in enumerate(rows):
+            t = t0 + j
+            st, out = step(st, CF32(zr, zi))
+            pltr.store(or_ref.at[t * c_len + ch], out.re, mask=cmask)
+            pltr.store(oi_ref.at[t * c_len + ch], out.im, mask=cmask)
+            # post-update frequency after symbols k*every - 1 (the
+            # frame-boundary readback of qpsk.c:217)
+            k = jnp.maximum(jax.lax.div(t + 1, every) - 1, 0)
+            pltr.store(ft_ref.at[k * c_len + ch], st.freq,
+                       mask=cmask & (jax.lax.rem(t + 1, every) == 0))
+        return st
 
-    @pl.when(j == 0)
-    def _():
-        for s_ref, in_ref in zip(scr, ins):
-            s_ref[:] = in_ref[:]
+    st = CostasState(*(pltr.load(r.at[ch], mask=cmask, other=0.0)
+                       for r in st_in))
+    n_full = t_len // tc
+    if n_full:
+        def body(k, carry):
+            st, rows = carry
+            nxt = load_rows((k + 1) * tc, tc, (k + 1) < n_full)
+            return run_rows(k * tc, rows, st), nxt
 
-    def step(t, carry):
-        phase = scr[0][:]
-        freq = scr[1][:]
-        zr = zr_src[pl.ds(t * sg, sg), :]     # (sg, LT) channel-group rows
-        zi = zi_src[pl.ds(t * sg, sg), :]
-        if agc_nsf and not _AGC_PRESCALE:
-            # frame-rate AGC gain applied in-register (modem feeds the
-            # gains computed by ops/agc.agc_gains_tm on the SAME input
-            # planes): one IEEE multiply per plane, the same rounded value
-            # the composed path loads from its XLA-scaled HBM plane.  The
-            # scaled value feeds two multiplies (cos/sin), so FMA
-            # contraction cannot absorb it — no staging needed.
-            gv = g_ref[t // agc_nsf, :, :]
-            zr = zr * gv
-            zi = zi * gv
-        # derotate by the *current* phase (qpsk.c:197)
-        c = jnp.cos(phase)
-        s = jnp.sin(phase)
-        outr = zr * c + zi * s          # z * e^{-j phase}
-        outi = zi * c - zr * s
-        or_ref[pl.ds(t * sg, sg), :] = outr
-        oi_ref[pl.ds(t * sg, sg), :] = outi
-        if gear or emit_bits or emit_label or dd_kind:
-            # re-read the STORED derotation so downstream consumers (the
-            # gear errn path, the packed-bit signs) see the very bits the
-            # output (and the scan twin + XLA slicer) sees: XLA otherwise
-            # duplicates the outr/outi computation into separate fusions
-            # whose multiply-adds FMA-contract differently — a 1-ULP
-            # drift vs the scan (the store/load round-trips through the
-            # ref, which fusion cannot fold; see costas_step_gear)
-            outr = or_ref[pl.ds(t * sg, sg), :]
-            outi = oi_ref[pl.ds(t * sg, sg), :]
-        if emit_bits:
-            # diagonal slicer in-kernel (modmap.demod_bits: b1 = im < 0,
-            # b0 = re < 0, stream order [b1, b0]), packed 16 symbols per
-            # int32 lane: pair_t at bit 2*(t%16) with b1 in the LOW bit —
-            # the XLA-side unpack never re-reads the derot planes, which
-            # on the HBM-bound composed path was the slicer's whole cost
-            pair = (jnp.where(outi < 0.0, 1, 0)
-                    + 2 * jnp.where(outr < 0.0, 1, 0)).astype(jnp.int32)
-            jm = jax.lax.rem(t, 16)
-            shifted = jax.lax.shift_left(pair, (2 * jm).astype(jnp.int32))
-            acc = jnp.where(jm == 0, shifted, pk_s[:, :] + shifted)
-            pk_s[:, :] = acc
-
-            @pl.when(jm == 15)
-            def _(t=t):
-                pk_ref[t // 16, :, :] = pk_s[:, :]
-        if dd_kind:
-            # generic decision-directed error: ONE literal op program
-            # shared with the lax.scan detector (modfam.dd_err_ops) —
-            # boundary-exact comparison decisions plus pinned error
-            # products, the only combination measured to stay
-            # bit-identical across Mosaic / XLA:TPU / XLA:CPU (FMA
-            # contraction of ``a*b - c*d`` and of score mul-adds differs
-            # between compilers AND shapes).  Constants ride the SMEM
-            # params vector (kernels can't capture arrays); the staging
-            # planes are the Mosaic-side fusion barrier (the gear errn
-            # trick).  Under interpret mode the kernel compiles with the
-            # SAME XLA backend as the scan, so stage is identity there —
-            # structural identity is bit identity, and staging would
-            # itself move fusion boundaries.
-            from qpsk_tpu.ops.modfam import dd_err_ops
-
-            def stage(u, v):
-                if interpret_mode:      # interpret: same compiler as scan
-                    return u, v
-                du_s[:, :] = u
-                dv_s[:, :] = v
-                return du_s[:, :], dv_s[:, :]
-
-            res = dd_err_ops(dd_kind, _m, outr, outi,
-                             get=lambda i: dd_c[i], stage=stage,
-                             want_label=emit_label)
-            if emit_label:
-                # pack the decided Gray LABELS in-line — 4 bits/symbol,
-                # 8 symbols per int32 lane (uniform across the family;
-                # bps <= 4).  Exact twin of modfam.slice_labels_cmp on the
-                # stored derot values: the decisions are boundary-exact
-                # comparisons, so packing them here is the generic family's
-                # analogue of the QPSK emit_bits dibit slicer — consumers
-                # read 0.5 B/symbol instead of re-reading 8 B/symbol derot
-                # planes AND re-running an (n, M) score argmax.
-                err, lab = res
-                jm = jax.lax.rem(t, 8)
-                shifted = jax.lax.shift_left(
-                    lab, (4 * jm).astype(jnp.int32))
-                acc = jnp.where(jm == 0, shifted, pk_s[:, :] + shifted)
-                pk_s[:, :] = acc
-
-                @pl.when(jm == 7)
-                def _(t=t):
-                    pk_ref[t // 8, :, :] = pk_s[:, :]
-            else:
-                err = res
-        else:
-            # QPSK sign error (costas_loop.c:44-47)
-            sr = jnp.where(outr > 0.0, 1.0, -1.0).astype(jnp.float32)
-            si = jnp.where(outi > 0.0, 1.0, -1.0).astype(jnp.float32)
-            err = sr * outi - si * outr
-        if gear:
-            # lock detector + gear select (ops/costas.py costas_step_gear)
-            errn = jnp.abs(err) / (jnp.abs(outr) + jnp.abs(outi)
-                                   + jnp.float32(1e-9))
-            lev = scr[2][:] + gamma * (errn - scr[2][:])
-            locked = jnp.where(lev < enter, jnp.float32(1.0),
-                               jnp.where(lev > exit_, jnp.float32(0.0),
-                                         scr[3][:]))
-            a = jnp.where(locked > 0.5, alpha_trk, alpha)
-            b = jnp.where(locked > 0.5, beta_trk, beta)
-            scr[2][:] = lev
-            scr[3][:] = locked
-        else:
-            a, b = alpha, beta
-        # advance (costas_loop.c:56-59), wrap, clamp
-        freq = freq + b * err
-        phase = (phase + freq) + a * err
-        tau = jnp.float32(TAU)
-        phase = jnp.where(phase > tau, phase - tau, phase)
-        phase = jnp.where(phase > tau, phase - tau, phase)
-        phase = jnp.where(phase < -tau, phase + tau, phase)
-        phase = jnp.where(phase < -tau, phase + tau, phase)
-        freq = jnp.clip(freq, min_freq, max_freq)
-        if not trace_blocks:
-            # post-update trace (qpsk.c:217), one row block per symbol
-            ft_ref[pl.ds(t * sg, sg), :] = freq
-        scr[0][:] = phase
-        scr[1][:] = freq
-        return carry
-
-    # manual unroll: lax.fori_loop in Mosaic supports only unroll=1 or
-    # full; a Python sub-loop amortizes the per-iteration control overhead
-    # over U recurrence steps (the math chain itself stays serial)
-    u = 4
-    while tt % u:
-        u //= 2
-
-    def step_u(tu, carry):
-        for k in range(u):
-            step(tu * u + k, carry)
-        return carry
-
-    jax.lax.fori_loop(0, tt // u, step_u, 0, unroll=1)
-
-    if trace_blocks:
-        # block-rate trace: ONE (sg, LT) row per time tile — the loop freq
-        # after the tile's last symbol (what the frame-rate readback
-        # consumes) — instead of a full per-symbol plane.  Cuts the trace
-        # HBM write by tt x and drops a VMEM store from the serial loop.
-        ft_ref[0, :, :] = scr[1][:]
-
-    @pl.when(j == nj - 1)
-    def _():
-        for s_ref, out_ref in zip(scr, outs[3:]):
-            out_ref[:] = s_ref[:]
+        st, _ = jax.lax.fori_loop(
+            0, n_full, body, (st, load_rows(jnp.int32(0), tc, True)))
+    tail = t_len - n_full * tc
+    if tail:
+        t0 = jnp.int32(n_full * tc)
+        st = run_rows(t0, load_rows(t0, tail, True), st)
+    for r, v in zip(st_out, st):
+        pltr.store(r.at[ch], v, mask=cmask)
 
 
-@functools.partial(jax.jit, static_argnames=("sg", "lt", "tt", "gear",
-                                             "trace_blocks", "emit_bits",
-                                             "emit_label", "dd_kind",
-                                             "agc_nsf", "interpret"))
-def _costas_pallas_tc(zr, zi, state0, params_vec, gains=None, *,
-                      sg: int, lt: int, tt: int, gear: bool = False,
-                      trace_blocks: bool = False, emit_bits: bool = False,
-                      emit_label: bool = False, dd_kind: str = "",
-                      agc_nsf: int = 0, interpret: bool = False):
-    """Time-major kernel launch: zr/zi are (T*sg, C/sg) — each time step's
-    C channels folded into sg sublane rows of L = C/sg lanes; state0 =
-    tuple of (sg, L) state planes (phase, freq[, lev, locked]).  With
-    ``trace_blocks`` the freq trace comes back at time-tile rate,
-    ((T/tt)*sg, L), instead of per symbol.  With ``agc_nsf`` > 0,
-    ``gains`` is a (T/agc_nsf, sg, L) per-frame AGC gain plane and each
-    input symbol is scaled by its frame's gain in-register before the
-    derotation (one IEEE multiply — bit-identical to scaling the planes
-    in XLA first, which is what the composed lowering does)."""
-    tsg, ll = zr.shape
-    t = tsg // sg
-    grid = (ll // lt, t // tt)
+def _floats(nt) -> tuple:
+    """Concrete scalars of a params/gear tuple as Python floats: they are
+    compiled into the kernel as constants."""
+    return tuple(float(np.asarray(v)) for v in nt)
+
+
+@functools.partial(jax.jit, static_argnames=(
+    "params", "gear", "dd", "every", "agc_nsf", "interpret"))
+def _costas_call(zr, zi, state0, gains, *, params, gear, dd, every,
+                 agc_nsf, interpret):
+    t, c = zr.shape
     ns = len(state0)
-
-    state_spec = pl.BlockSpec((sg, lt), lambda i, j: (0, i),
-                              memory_space=pltpu.VMEM)
-    block_spec = pl.BlockSpec((tt * sg, lt), lambda i, j: (j, i),
-                              memory_space=pltpu.VMEM)
-    if trace_blocks:
-        # 3D (T/tt, sg, L) so the (1, sg, lt) block's sublane dim equals
-        # the array dim (sg < 8 would otherwise violate the 8-row rule)
-        trace_spec = pl.BlockSpec((1, sg, lt), lambda i, j: (j, 0, i),
-                                  memory_space=pltpu.VMEM)
-        trace_shape = jax.ShapeDtypeStruct((t // tt, sg, ll), jnp.float32)
+    p = CostasParams(*params)
+    g = CostasGear(*gear) if gear is not None else None
+    if g is not None:
+        def step(st, z):
+            out = cmul(z, cexp_conj(st.phase))
+            return costas_ops.gear_update(st, out, p, g), out
     else:
-        trace_spec = block_spec
-        trace_shape = jax.ShapeDtypeStruct((tsg, ll), jnp.float32)
+        det = costas_ops.phase_detector
+        if dd is not None:
+            from qpsk_tpu.ops import modfam
+            det = modfam.dd_detector(modfam.get(dd[0]), scale=dd[1])
 
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),   # params (4,) / (9,) / 4+dd
-        block_spec, block_spec,                   # z planes
-    ] + [state_spec] * ns                         # initial state
-    inputs = [params_vec, zr, zi, *state0]
+        def step(st, z):
+            return costas_ops.costas_step(st, z, p, det)
+
+    bc = _pick_bc(c)
+    inputs = [zr.reshape(-1), zi.reshape(-1), *state0]
     if agc_nsf:
-        assert gains is not None
-        # per-frame gain rows: a time tile either covers whole frames
-        # (tt % nsf == 0) or sits inside one frame (nsf % tt == 0); in
-        # both cases in-kernel row t // nsf indexes within the block
-        if tt >= agc_nsf:
-            assert tt % agc_nsf == 0, (tt, agc_nsf)
-            g_spec = pl.BlockSpec((tt // agc_nsf, sg, lt),
-                                  lambda i, j: (j, 0, i),
-                                  memory_space=pltpu.VMEM)
-        else:
-            assert agc_nsf % tt == 0, (tt, agc_nsf)
-            tpf = agc_nsf // tt
-            g_spec = pl.BlockSpec((1, sg, lt),
-                                  lambda i, j: (j // tpf, 0, i),
-                                  memory_space=pltpu.VMEM)
-        in_specs.append(g_spec)
-        inputs.append(gains)
-
-    out_shapes = (
-        jax.ShapeDtypeStruct((tsg, ll), jnp.float32),   # out re
-        jax.ShapeDtypeStruct((tsg, ll), jnp.float32),   # out im
-        trace_shape,                                     # freq trace
-    ) + (jax.ShapeDtypeStruct((sg, ll), jnp.float32),) * ns   # final state
-    out_specs = (block_spec, block_spec, trace_spec) + (state_spec,) * ns
-    scratch = [pltpu.VMEM((sg, lt), jnp.float32)] * ns
-    if agc_nsf and _AGC_PRESCALE:
-        # tile-sized pre-scaled input planes (see _kernel's AGC hoist)
-        scratch = scratch + [pltpu.VMEM((tt * sg, lt), jnp.float32)] * 2
-    if dd_kind:
-        scratch = scratch + [pltpu.VMEM((sg, lt), jnp.float32)] * 2
-    if emit_bits:
-        assert tt % 16 == 0, tt
-        out_shapes = out_shapes + (
-            jax.ShapeDtypeStruct((t // 16, sg, ll), jnp.int32),)
-        out_specs = out_specs + (
-            pl.BlockSpec((tt // 16, sg, lt), lambda i, j: (j, 0, i),
-                         memory_space=pltpu.VMEM),)
-        scratch = scratch + [pltpu.VMEM((sg, lt), jnp.int32)]
-    elif emit_label:
-        assert tt % 8 == 0, tt
-        out_shapes = out_shapes + (
-            jax.ShapeDtypeStruct((t // 8, sg, ll), jnp.int32),)
-        out_specs = out_specs + (
-            pl.BlockSpec((tt // 8, sg, lt), lambda i, j: (j, 0, i),
-                         memory_space=pltpu.VMEM),)
-        scratch = scratch + [pltpu.VMEM((sg, lt), jnp.int32)]
-    return pl.pallas_call(
-        functools.partial(_kernel, gear=gear, sg=sg,
-                          trace_blocks=trace_blocks, emit_bits=emit_bits,
-                          emit_label=emit_label, dd_kind=dd_kind,
-                          agc_nsf=agc_nsf, interpret_mode=interpret),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shapes,
-        scratch_shapes=scratch,
+        inputs.append(gains.reshape(-1))
+    plane = jax.ShapeDtypeStruct((t * c,), jnp.float32)
+    out_shape = (plane, plane,
+                 jax.ShapeDtypeStruct(((t // every) * c,), jnp.float32)) \
+        + (jax.ShapeDtypeStruct((c,), jnp.float32),) * ns
+    out = pl.pallas_call(
+        functools.partial(_kernel, t_len=t, c_len=c, bc=bc,
+                          tc=min(_TC, t), every=every, ns=ns,
+                          agc_nsf=agc_nsf, step=step),
+        grid=(pl.cdiv(c, bc),),
+        out_shape=out_shape,
+        compiler_params=pltr.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
+        name="costas_loop",
     )(*inputs)
+    return (out[0].reshape(t, c), out[1].reshape(t, c),
+            out[2].reshape(t // every, c), out[3:])
 
 
-def _pick_tiles(c: int, t: int):
-    # Fold channels onto sublanes first (sg rows of L = c/sg lanes — a
-    # (1, C) step row uses 1/8 of every vreg; (8, C/8) uses all of it),
-    # then the widest lane tile wins: the per-step cost is loop/VMEM-issue
-    # overhead, not VPU compute, so it amortizes across lanes.  The
-    # lane-tile grid axis is OUTER-sequential, so lanes beyond lt multiply
-    # wall time linearly — keep lt as wide as VMEM allows.
-    sg = 8
-    while sg > 1 and c % (sg * 128) != 0:
-        sg //= 2
-    ll = c // sg
-    lt = 128
-    while lt * 2 <= min(ll, 1024) and ll % (lt * 2) == 0:
-        lt *= 2
-    tt = t
-    # stream T in tiles that keep the VMEM working set modest (~4 buffers
-    # of (tt*sg, lt) f32 for in/out planes, double-buffered)
-    max_tt = max(8, (2 * 1024 * 1024) // (sg * lt * 4 * 4))
-    while tt > max_tt and tt % 2 == 0:
-        tt //= 2
-    return sg, lt, tt
+def costas_run_tm(state: CostasState, zr_tm: jnp.ndarray,
+                  zi_tm: jnp.ndarray, params: CostasParams,
+                  gear: CostasGear | None = None,
+                  trace_every: int | None = None, dd=None,
+                  gains: jnp.ndarray | None = None,
+                  interpret: bool = False):
+    """Run the loop over time-major ``(T, C)`` symbol planes.
+
+    Returns ``(new_state, derot CF32 (T, C), ftrace)`` where ``ftrace`` is
+    the post-update loop frequency (rad/symbol), ``(C, T)`` per symbol when
+    ``trace_every`` is None, else ``(C, T // trace_every)``: the values
+    after symbols ``k*trace_every - 1``.  ``gear`` selects the gear-shift
+    loop (state from ``costas_init(..., gear=True)``); ``dd`` = (modulation
+    name, constellation scale) the generic decision-directed detector;
+    ``gains`` a ``(T // nsf, C)`` per-frame AGC gain plane, each symbol
+    scaled by its frame's gain before the loop sees it.
+
+    Raises off the GPU unless ``interpret=True`` (Pallas interpret mode)."""
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "the fused Costas kernel compiles for the GPU only (backend is "
+            f"{jax.default_backend()!r}); use costas_impl='scan', or pass "
+            "interpret=True to run it in Pallas interpret mode")
+    t, c = zr_tm.shape
+    every = trace_every or 1
+    if t % every:
+        raise ValueError(f"trace_every={every} must divide T={t}")
+    if gear is not None:
+        if dd is not None:
+            raise ValueError("the gear-shift loop is QPSK-only")
+        if state.lev is None or state.locked is None:
+            raise ValueError("gear mode needs costas_init(..., gear=True)")
+        state0 = (state.phase, state.freq, state.lev, state.locked)
+    else:
+        state0 = (state.phase, state.freq)
+    agc_nsf = 0
+    if gains is not None:
+        nf = gains.shape[0]
+        if gains.shape != (nf, c) or t % nf:
+            raise ValueError(f"gains {gains.shape} do not tile ({t}, {c})")
+        agc_nsf = t // nf
+    outr, outi, ft, fin = _costas_call(
+        zr_tm, zi_tm, tuple(state0), gains, params=_floats(params),
+        gear=_floats(gear) if gear is not None else None,
+        dd=(dd[0], float(dd[1])) if dd is not None else None,
+        every=every, agc_nsf=agc_nsf, interpret=interpret)
+    return CostasState(*fin), CF32(outr, outi), ft.T
 
 
 def costas_run_pallas(state: CostasState, symbols: CF32,
                       params: CostasParams, gear: CostasGear | None = None,
                       interpret: bool = False):
-    """Drop-in replacement for ``costas_run`` on (C, T) symbol batches.
-
-    Requires C a multiple of 128 (lane width).  Returns the same
-    (new_state, derotated) pair; trajectories match the scan bit-for-bit.
-    Pass ``gear`` (with a gear-initialized state, ``costas_init(...,
-    gear=True)``) for the dual-bandwidth loop — matches
-    ``costas_run_gear`` bit-for-bit.
-    """
-    st, out, _ = costas_run_pallas_traced(state, symbols, params, gear=gear,
-                                          interpret=interpret)
-    return st, out
-
-
-def unpack_bits_tm(packed: jnp.ndarray, t: int, c: int) -> jnp.ndarray:
-    """(T//16, C) int32 packed dibits -> (C, 2*T) int32 bit stream, the
-    exact layout of ``modmap.demod_bits`` on the (C, T) derot symbols.
-    Pure elementwise shifts + reshapes: fuses into whatever consumes the
-    bits, so the full-rate derot planes are never re-read for slicing.
-    int32 right shifts are arithmetic — always mask after shifting."""
-    w = packed[:, None, :]                               # (T/16, 1, C)
-    j = jnp.arange(16, dtype=jnp.int32)[None, :, None]
-    b1 = (w >> (2 * j)) & 1                              # (T/16, 16, C)
-    b0 = (w >> (2 * j + 1)) & 1
-    bits = jnp.stack([b1, b0], axis=2)                   # (T/16, 16, 2, C)
-    return bits.reshape(2 * t, c).T                      # (C, 2T)
-
-
-def unpack_labels_tm(packed: jnp.ndarray, t: int, c: int) -> jnp.ndarray:
-    """(T//8, C) int32 packed 4-bit DD labels -> (C, T) int32 labels (the
-    layout of ``modfam.slice_labels_cmp`` on the (C, T) derot symbols).
-    Pure elementwise shifts + reshapes — fuses into the bit expansion, so
-    the full-rate derot planes are never re-read for slicing."""
-    w = packed[:, None, :]                               # (T/8, 1, C)
-    j = jnp.arange(8, dtype=jnp.int32)[None, :, None]
-    lab = (w >> (4 * j)) & 15                            # (T/8, 8, C)
-    return lab.reshape(t, c).T                           # (C, T)
-
-
-def costas_run_pallas_tm(state: CostasState, zr_tm: jnp.ndarray,
-                         zi_tm: jnp.ndarray, params: CostasParams,
-                         gear: CostasGear | None = None,
-                         trace_every: int | None = None,
-                         emit_bits: bool = False,
-                         emit_label: bool = False,
-                         dd=None,
-                         gains: jnp.ndarray | None = None,
-                         interpret: bool = False):
-    """Time-major entry: consumes (T, C) symbol planes DIRECTLY (the layout
-    the fused front-end kernel emits, ops/pallas/frontend_kernel.py
-    ``rx_frontend_fused_tm``) — the (C, T) transpose fold of
-    ``costas_run_pallas`` never materializes.  The sublane fold
-    (T, C) -> (T*sg, C/sg) is a contiguous row split, i.e. free.
-
-    Returns ``(new_state, derot_tm CF32 (T, C), ftrace, bits)`` where
-    ``ftrace`` is (C, T) per-symbol when ``trace_every`` is None, else
-    (C, T // trace_every) — the post-update loop frequency after symbols
-    ``k*trace_every - 1`` (the frame-boundary readback of qpsk.c:217) with
-    the per-symbol trace plane never written to HBM.  With ``emit_bits``
-    the kernel also slices the diagonal constellation in-line and ``bits``
-    is the (C, 2T) hard-bit stream (== ``modmap.demod_bits`` on the derot
-    symbols, bit-for-bit) whose consumers read 0.25 B/symbol of packed
-    words instead of 8 B/symbol of derot planes; otherwise ``bits`` is
-    None.
-
-    Generic-family twins: with ``dd`` + ``emit_label`` the kernel packs
-    its decision-directed Gray LABELS (4 bits/symbol, 8 per int32 lane)
-    and ``bits`` is the (C, bps*T) hard-bit stream — identical to
-    ``modfam.demod_bits_cmp`` on the derot symbols (both run the one
-    boundary-exact comparison program, ``modfam.dd_err_ops``).  With
-    ``gains`` (a (T // nsf, C) per-frame AGC gain plane, nsf inferred
-    from the gains shape) each symbol is scaled in-register before the
-    loop — the frame-rate AGC rides the zero-glue path instead of
-    forcing a staged XLA scale pass between the kernels."""
-    interpret = interpret or jax.default_backend() != "tpu"
-    t, c = zr_tm.shape
-    assert c % 128 == 0, f"channel count {c} must be a multiple of 128"
-    sg, lt, tt = _pick_tiles(c, t)
-    if trace_every is not None:
-        assert t % trace_every == 0, (t, trace_every)
-        # time tiles must land on trace boundaries so each boundary freq is
-        # some tile's last-step freq.  Cap at trace_every FIRST: halving
-        # alone cannot shed odd factors of t (e.g. t = 5120 = 5*1024 gives
-        # tt = 640, which no halving maps onto trace_every = 128), and any
-        # tt | trace_every also divides t.
-        tt = min(tt, trace_every)
-        while trace_every % tt:
-            tt //= 2
-    agc_nsf = 0
-    if gains is not None:
-        nf = gains.shape[0]
-        assert gains.shape == (nf, c) and t % nf == 0, (gains.shape, t, c)
-        agc_nsf = t // nf
-        # tiles must align with frame boundaries (see _costas_pallas_tc):
-        # either whole frames per tile or whole tiles per frame
-        while tt % agc_nsf and agc_nsf % tt:
-            tt //= 2
-    ll = c // sg
-    base = [params.alpha, params.beta, params.min_freq, params.max_freq]
-    dd_kind = ""
-    if gear is not None:
-        assert dd is None, "gear mode is QPSK-only (config validation)"
-        assert state.lev is not None and state.locked is not None, \
-            "gear mode needs costas_init(..., gear=True) state"
-        params_vec = jnp.stack(base + [gear.alpha_trk, gear.beta_trk,
-                                       gear.gamma, gear.enter, gear.exit])
-        state0 = (state.phase, state.freq, state.lev, state.locked)
-    elif dd is not None:
-        # generic decision-directed mode: ``dd`` = (modulation name,
-        # constellation scale); the flat dd_constants vector rides the
-        # SMEM params after the four loop gains (modfam.dd_err_ops
-        # indexes it via get(i) = params[4 + i])
-        assert not emit_bits, "emit_bits is the QPSK diagonal slicer"
-        from qpsk_tpu.ops import modfam
-        dd_kind, dd_scale = dd
-        consts = modfam.dd_constants(modfam.get(dd_kind), dd_scale)
-        params_vec = jnp.concatenate([jnp.stack(base),
-                                      jnp.asarray(consts, jnp.float32)])
-        state0 = (state.phase, state.freq)
-    else:
-        params_vec = jnp.stack(base)
-        state0 = (state.phase, state.freq)
-    if emit_bits and tt % 16 != 0:
-        emit_bits = False        # geometry can't pack; caller slices derot
-    assert not (emit_label and dd is None), \
-        "emit_label is the generic family's DD-mode slicer"
-    if emit_label and (tt % 8 != 0 or t % 8 != 0):
-        emit_label = False       # geometry can't pack; caller slices derot
-    zr = zr_tm.reshape(t * sg, ll)
-    zi = zi_tm.reshape(t * sg, ll)
-    state0 = tuple(p.reshape(sg, ll) for p in state0)
-    gains_f = None
-    if agc_nsf:
-        gains_f = gains.reshape(t // agc_nsf, sg, ll)
-    out = _costas_pallas_tc(zr, zi, state0, params_vec, gains_f,
-                            sg=sg, lt=lt, tt=tt,
-                            gear=gear is not None,
-                            trace_blocks=trace_every is not None,
-                            emit_bits=emit_bits, emit_label=emit_label,
-                            dd_kind=dd_kind, agc_nsf=agc_nsf,
-                            interpret=interpret)
-    outr, outi = (a.reshape(t, c) for a in out[:2])
-    if trace_every is None:
-        ftrace = out[2].reshape(t, c).T
-    else:
-        step = trace_every // tt
-        # (T/tt, sg, L) -> (T/tt, C) rides the state fold bijection
-        ftrace = out[2].reshape(t // tt, c)[step - 1::step].T
-    ns = 4 if gear is not None else 2
-    fin = [p.reshape(c) for p in out[3:3 + ns]]
-    bits = None
-    if emit_bits:
-        bits = unpack_bits_tm(out[3 + ns].reshape(t // 16, c), t, c)
-    elif emit_label:
-        from qpsk_tpu.ops import modfam
-        lab = unpack_labels_tm(out[3 + ns].reshape(t // 8, c), t, c)
-        bits = modfam.labels_to_bits(lab, modfam.get(dd_kind))
-    if gear is not None:
-        new_state = CostasState(phase=fin[0], freq=fin[1],
-                                lev=fin[2], locked=fin[3])
-    else:
-        new_state = CostasState(phase=fin[0], freq=fin[1])
-    return new_state, CF32(outr, outi), ftrace, bits
-
-
-def costas_run_pallas_traced(state: CostasState, symbols: CF32,
-                             params: CostasParams,
-                             gear: CostasGear | None = None,
-                             trace_every: int | None = None,
-                             dd=None,
-                             interpret: bool = False):
-    """Pallas twin of ``costas_run_traced`` / ``costas_run_gear_traced``:
-    also returns the post-update frequency trace (rad/symbol) — per symbol
-    (C, T), or (C, T // trace_every) when ``trace_every`` is set (see
-    ``costas_run_pallas_tm``).  ``dd`` = (modulation name, constellation
-    scale) switches the phase detector to the generic decision-directed
-    error (constants built via ``modfam.dd_constants``; bit-identical to
-    ``costas_run(..., detector=modfam.dd_detector)``)."""
-    c, t = symbols.re.shape
-    # fold channels onto sublanes: (C, T) -> (T, C) [-> (T*sg, C/sg) inside,
-    # a free reshape], with channel ch = s*L + l on sublane-group s, lane l
-    new_state, derot_tm, ftrace, _ = costas_run_pallas_tm(
-        state, symbols.re.T, symbols.im.T, params, gear=gear,
-        trace_every=trace_every, dd=dd, interpret=interpret)
-    return new_state, CF32(derot_tm.re.T, derot_tm.im.T), ftrace
+    """Drop-in twin of ``costas_run`` / ``costas_run_gear`` on (C, T)
+    symbol batches: returns (new_state, derotated (C, T))."""
+    st, derot, _ = costas_run_tm(state, symbols.re.T, symbols.im.T, params,
+                                 gear=gear, trace_every=symbols.shape[-1],
+                                 interpret=interpret)
+    return st, CF32(derot.re.T, derot.im.T)

@@ -7,7 +7,7 @@ rate and the modem rate.  This module converts by any rational factor L/M
 (48000/9600 = 5/1, 9600/44100 = 32/147, ...) with one anti-alias/anti-image
 Kaiser-windowed-sinc prototype.
 
-Design, TPU-first:
+Design:
 
 * **One matmul, no gathers, no zero-stuffing.**  The textbook structure
   (upsample xL -> FIR -> downsample xM) wastes (L-1)/L of its MACs on
@@ -17,7 +17,7 @@ Design, TPU-first:
   static polyphase matrix (Q = ceil((K-1)/M) history groups for K taps per
   phase): y[jL+p] = sum_k h[(pM)%L + kL] * x[jM + floor(pM/L) - k].  The
   overlapping windows are static shifted slices of the group array (the
-  ``rrc.fir_block`` split-matmul idiom), so the whole converter is MXU
+  ``rrc.fir_block`` split-matmul idiom), so the whole converter is matmul
   work at the *input* rate.
 * **Streaming state** is the last Q*M input samples — chunked calls chain
   bit-exactly with the one-shot transform (same guarantee as the modem's

@@ -10,7 +10,7 @@ Two pieces:
   GAIN**2 ~ 3.42.
 
 * ``fir_block`` — the streaming 127-tap complex FIR (rrc_fir.c:17-30)
-  re-designed for the TPU MXU.  The C code is a per-sample shift-and-MAC
+  re-designed as matmuls.  The C code is a per-sample shift-and-MAC
   delay line; here the convolution over each tile of ``B`` outputs is a dense
   real matmul ``Y = X_window @ T`` with a banded Toeplitz tap matrix
   ``T[j + k, j] = c[k]`` of shape ``(B + ntaps - 1, B)``, which XLA tiles
@@ -118,11 +118,11 @@ def fir_block(x: CF32, tail: CF32, tmat: jnp.ndarray, gain: float,
       gain: the per-output GAIN multiply (rrc_fir.c:28) — applied *in
         addition* to the gain baked into the taps, matching the reference's
         double-GAIN quirk.
-      block: output tile width (multiple of 128 for MXU alignment).
+      block: output tile width (a multiple of 128).
       precision: matmul precision; defaults to HIGHEST (parity-grade f32).
-        DEFAULT (one bf16 MXU pass) is ~1.8x faster on v5e with ~0.3%
-        output error — far below any channel noise floor but outside the
-        golden-parity tolerance, so parity mode must keep HIGHEST.
+        DEFAULT (TF32 on the GPU, ~3 decimal digits) is far below any
+        channel noise floor but outside the golden-parity tolerance, so
+        parity mode must keep HIGHEST.
 
     Returns:
       (y, new_tail): filtered samples ``(..., n)`` and the tail to carry.
@@ -189,7 +189,7 @@ def fir_block_modulated(x: jnp.ndarray, tail: jnp.ndarray,
     block operand is a free reshape of ``x``, the tail operand a slice —
     but the two matmuls per tile are the re/im tap planes over ONE real
     input plane instead of one tap plane over two mixed planes: identical
-    MXU work, half the input-side HBM traffic, and no full-rate mix.
+    matmul work, half the input-side memory traffic, and no full-rate mix.
 
     Args:
       x: ``(..., n)`` float32 RAW samples; ``n`` must divide by ``block``.

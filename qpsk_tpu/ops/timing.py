@@ -112,7 +112,7 @@ def _wrap_half_cycle(x: jnp.ndarray, cycles: int) -> jnp.ndarray:
 def timing_track_step(state, meas: jnp.ndarray, cycles: int,
                       alpha: float = 0.5, beta: float = 0.08):
     """One update of the second-order timing loop (the Gardner-class
-    tracking capability, realized TPU-first: the timing-error detector is
+    tracking capability, realized in parallel form: the timing-error detector is
     the *block* O&M estimate per frame, so the sequential part runs at
     frame rate — 128x slower than a per-symbol Gardner scan — while all
     per-sample math stays parallel).
@@ -197,10 +197,10 @@ def decimate_fractional(frame: CF32, tau: jnp.ndarray, cycles: int) -> CF32:
     symbol clocks (sample-rate error, non-integer delays) no longer cost
     up to half a sample of timing error.
 
-    TPU shape: like ``decimate_select`` the dynamic pick is a one-hot
+    Shape: like ``decimate_select`` the dynamic pick is a one-hot
     contraction over the 2*cycles integer base phases (no gathers); the
     four Catmull-Rom taps are four shifted one-hot picks blended by the
-    polynomial weights — all VPU work.
+    polynomial weights — all elementwise work.
     """
     i0 = jnp.clip(jnp.floor(tau).astype(jnp.int32), 0, 2 * cycles - 2)
     mu = tau - i0.astype(jnp.float32)                 # in [0, 1)
@@ -228,11 +228,9 @@ def decimate_select(frame: CF32, index: jnp.ndarray, cycles: int) -> CF32:
     symbol group (and past the frame for the last symbol — UB in C,
     qpsk.c:188-189; here the last group clamps to itself).
 
-    TPU note: ``take_along_axis`` over the lane axis is an order of
-    magnitude slower than compute on this chip (measured ~30 ms for what
-    the rest of the pipeline does in ~3), so the dynamic pick is expressed
-    as a one-hot contraction over the 2*cycles candidate phases — pure
-    VPU/MXU work, no gather.
+    The dynamic pick is a one-hot contraction over the 2*cycles candidate
+    phases rather than a ``take_along_axis`` gather (which form is faster
+    on the GPU is not measured yet — ROADMAP).
     """
     nsym = frame.shape[-1] // cycles
     batch_frame = frame.shape[:-1]

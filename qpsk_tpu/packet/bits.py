@@ -7,7 +7,7 @@ clocks the two LSBs of each dibit byte in order ``i = 0, 1``
 (bit-scramble.c:57-69).
 
 All functions are pure jnp ops over arbitrary leading batch axes; bits are
-int32 arrays of 0/1 (cheap, and TPU-friendlier than packed uint8 for the
+int32 arrays of 0/1 (cheap, and simpler than packed uint8 for the
 XOR/permute ops downstream).
 """
 

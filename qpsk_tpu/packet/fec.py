@@ -6,17 +6,17 @@ the ubiquitous K=7 (133, 171) NASA/Voyager code (d_free = 10, ~5 dB coding
 gain with soft decisions at QPSK rates), which pairs naturally with the
 golden-prime interleaver already in the frame pipeline.
 
-TPU design — the decoder is where the structure matters:
+Design — the decoder is where the structure matters:
 
 * The trellis is static: predecessor indices and branch-output signs for
   all 64 states are precomputed host-side (numpy, cached per code) and
-  enter the kernel as constants.
+  enter the computation as constants.
 * The add-compare-select recursion runs as one ``lax.scan`` over time with
-  the **64 states vectorized on the lane axis** (and arbitrary batch axes —
+  the **64 states vectorized on the last axis** (and arbitrary batch axes —
   packets, lag/rotation hypotheses — broadcast in front).  Per step it is
   a reshape+repeat (the butterfly predecessor map ``pred(s', p) =
-  p*(S/2) + (s' >> 1)`` needs NO gather — measured 1.8x on v5e over the
-  gathered form), two FMAs, one max: pure VPU work, no data-dependent
+  p*(S/2) + (s' >> 1)`` needs NO gather), two FMAs, one max: pure
+  elementwise work, no data-dependent
   control flow.
 * Path metrics are renormalized by their per-step max (float32 stays
   bounded); decisions are stored as the scan's stacked output and walked
@@ -108,23 +108,12 @@ def conv_encode(code: ConvCode, bits: jnp.ndarray) -> jnp.ndarray:
     return jnp.stack(outs, axis=-1).reshape(b.shape[:-1] + (code.rate_den * n,))
 
 
-def viterbi_decode(code: ConvCode, llrs: jnp.ndarray, nbits: int,
-                   impl: str = "auto") -> jnp.ndarray:
+def viterbi_decode(code: ConvCode, llrs: jnp.ndarray,
+                   nbits: int) -> jnp.ndarray:
     """Soft-decision Viterbi decode of (..., rate_den*(nbits+K-1)) LLRs
-    (positive = bit 0) back to (..., nbits) hard bits.
-
-    ``impl``: "auto" uses the fused Pallas kernel pair on TPU
-    (ops/pallas/viterbi_kernel.py — path metrics live in VMEM, 2x the
-    scan on v5e, decode bit-identical incl. hard-LLR ties,
-    tools/check_viterbi_tpu.py is the hardware gate); "scan" forces the
-    lax.scan lowering (every other backend, and the parity oracle)."""
-    if (impl == "auto" and jax.default_backend() == "tpu"
-            and 8 % code.rate_den == 0 and code.nstates % 16 == 0):
-        # nstates % 16: the kernel's dynamic sublane slices step by
-        # s_count rows, and the bf16 decision planes pack (16, 128) vregs
-        # so offsets must be 16-aligned; tiny codes keep the scan
-        from qpsk_tpu.ops.pallas.viterbi_kernel import viterbi_decode_pallas
-        return viterbi_decode_pallas(code, llrs, nbits)
+    (positive = bit 0) back to (..., nbits) hard bits: a ``lax.scan`` of
+    add-compare-select steps over the trellis, packets batched on the
+    leading axes."""
     k, s_count, rd = code.constraint, code.nstates, code.rate_den
     nsteps = nbits + k - 1
     assert llrs.shape[-1] == rd * nsteps, (llrs.shape, rd * nsteps)

@@ -6,7 +6,7 @@ bit ``i`` of the input moves to position ``j = (b * i) mod nbits``;
 DEINTERLEAVE swaps (i, j).  Bits are addressed LSB-first within bytes
 (interleave.c:67-74).
 
-TPU design: the permutation depends only on ``nbits``, so it is precomputed
+Design: the permutation depends only on ``nbits``, so it is precomputed
 host-side (cached) and applied as a single ``jnp.take`` gather over the bit
 axis — O(1) depth, trivially batched, and fuses with the surrounding XORs.
 """

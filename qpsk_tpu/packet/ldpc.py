@@ -1,26 +1,25 @@
 """Rate-1/2 LDPC (IRA structure) with a batched min-sum decoder.
 
 Second FEC family next to the K=7 convolutional code (packet/fec.py) —
-capability extension; the reference ships no FEC at all.  The design is
-chosen for the TPU, not against it:
+capability extension; the reference ships no FEC at all.  The design:
 
 * **Code structure: irregular repeat-accumulate** (the DVB-S2 family).
   ``H = [A | B]`` where A (m x k) has column weight ``dv`` (greedy
   row-balanced, girth-4-free vs both A and the accumulator), and B is the
   lower-bidiagonal accumulator.  Encoding is therefore one dense GF(2)
   matmul plus a prefix-XOR (``cumsum mod 2``) — no generator-matrix
-  inversion, both MXU/VPU-shaped.
+  inversion.
 * **Decoder: normalized min-sum over a COMPACT edge layout with one-hot
-  MXU contractions for gather/scatter.**  A sparse gather/scatter BP is
-  how GPUs do it; on TPU dynamic gathers would dominate (CLAUDE.md:
-  lane-axis gathers are ~10x compute).  But a dense masked (m, n) message
-  array is ~100x the code's actual edge count (H has ~5 nonzeros per row
-  of n = 2k columns) — measured HBM-bound at 1.9 Mb/s on v5e.  Instead,
-  messages live in a ``(..., dmax, m)`` block (dmax = max check degree,
-  the m checks on the VPU lanes); the variable-node scatter-add and the
-  check-node gather are each ONE matmul against a static 0/1 edge matrix
-  (``(dmax*m, n)``), i.e. MXU work with f32 accumulation, and the row
-  min/submin/sign-parity reductions run over the tiny dmax sublane axis.
+  contractions for gather/scatter.**  A dense masked (m, n) message
+  array would be ~100x the code's actual edge count (H has ~5 nonzeros
+  per row of n = 2k columns).  Instead, messages live in a
+  ``(..., dmax, m)`` block (dmax = max check degree); the variable-node
+  scatter-add and the check-node gather are each ONE matmul against a
+  static 0/1 edge matrix (``(dmax*m, n)``) with f32 accumulation, and the
+  row min/submin/sign-parity reductions run over the tiny dmax axis.
+  That matmul costs m*n per iteration, not the edge count: a gather plus
+  ``segment_sum`` message pass is the sparse form worth measuring on the
+  GPU (ROADMAP).
   The iteration loop is a ``lax.scan`` with static shapes; packets batch
   on the leading axes.
 * **Decode-free frame sync**: the parity-check syndrome weight
@@ -122,7 +121,7 @@ def _edges(k: int, dv: int, seed: int):
     slot s connects to (all-zero for padded slots past the check's degree);
     ``valid`` (dmax, m) masks real slots.  ``scat`` does double duty:
     ``e_flat @ scat`` is the variable-node scatter-add and
-    ``total @ scat.T`` the check-node gather — both MXU matmuls, no
+    ``total @ scat.T`` the check-node gather — both matmuls, no
     dynamic indexing anywhere."""
     _, h = _matrices(k, dv, seed)
     m, n = h.shape
@@ -139,34 +138,17 @@ def _edges(k: int, dv: int, seed: int):
 
 
 def ldpc_decode(code: LdpcCode, llrs: jnp.ndarray,
-                iters: int | None = None,
-                impl: str = "auto") -> jnp.ndarray:
+                iters: int | None = None) -> jnp.ndarray:
     """Normalized min-sum decode of (..., n) LLRs -> (..., k) hard bits.
 
-    ``impl``: "auto" uses the fused Pallas kernel on TPU
-    (ops/pallas/ldpc_kernel.py — the whole iteration loop in one launch,
-    messages VMEM-resident; 1.6x the XLA lowering on v5e; decode agrees
-    bit-for-bit on all tested inputs — summation orders differ, so exact
-    posterior ties may in principle diverge —
-    tools/check_ldpc_tpu.py is the hardware gate); "xla" forces
-    the lax.scan lowering below (every other backend).
-
     Messages ride a compact (..., dmax, m) block — the m checks on the
-    lanes, the <=dmax edge slots on the sublanes (see module docstring);
+    last axis, the <=dmax edge slots before it (see module docstring);
     check updates are min/submin + sign-parity reductions over the dmax
     axis, and the gather/scatter between checks and variables are one-hot
     matmuls with f32 accumulation.  Fixed iteration count (static shapes;
     a syndrome early-exit would put data-dependent control flow inside
     jit for no throughput gain at batch sizes where the slowest packet
     gates the step anyway)."""
-    if impl == "auto" and jax.default_backend() == "tpu":
-        # the kernel keeps the (dmax*m, n) edge matrix VMEM-resident:
-        # only dispatch when it fits with room for the LLR/message tiles
-        # (~16 MB VMEM on v5e); larger codes keep the XLA lowering
-        _, _, dmax_k = _edges(code.k, code.dv, code.seed)
-        if dmax_k * code.m * code.n * 4 <= 6 * 1024 * 1024:
-            from qpsk_tpu.ops.pallas.ldpc_kernel import ldpc_decode_pallas
-            return ldpc_decode_pallas(code, llrs, iters)
     scat_np, valid_np, dmax = _edges(code.k, code.dv, code.seed)
     scat = jnp.asarray(scat_np)                         # (dmax*m, n)
     valid = jnp.asarray(valid_np)                       # (dmax, m)

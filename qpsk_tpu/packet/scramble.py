@@ -7,7 +7,7 @@ file-scope static (bit-scramble.c:41-69): per bit,
     bit ^= out
     mem  = (mem >> 1) | (out << 14)
 
-The keystream is **input-independent** (additive scrambler), so the TPU
+The keystream is **input-independent** (additive scrambler), so the
 design precomputes the whole keystream for a frame once (host-side numpy,
 cached by (seed, length)) and the scramble itself is one vectorized XOR —
 no recurrence on device.  Scramble and descramble are the same operation

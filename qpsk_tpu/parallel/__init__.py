@@ -1,4 +1,4 @@
-"""Distributed execution: sharding the modem over a TPU mesh.
+"""Distributed execution: sharding the modem over a device mesh.
 
 The reference is strictly single-threaded C (SURVEY.md §2: no threads, no
 SIMD, no comm).  Scale-out is therefore *added capability*, along the two

@@ -1,12 +1,12 @@
 """Block-parallel single-stream demodulation on one chip.
 
-The Costas recurrence caps a *single* stream at the serial scan rate
-(~0.6 Msym/s on v5e regardless of how idle the rest of the chip is).  This
+The Costas recurrence caps a *single* stream at the serial loop rate,
+however idle the rest of the device is.  This
 module breaks that cap the same way the multi-device time-parallel path
 does (parallel/stream.py), but *within* one device: the decimated symbol
 stream is split into B overlapping blocks that ride the batch axis —
 each block 4th-power-re-acquires carrier from its overlap head, runs its
-own Costas loop (one vmapped scan / Pallas launch), and discards the
+own Costas loop (one batched scan or fused-kernel launch), and discards the
 overlap warmup.  Block boundaries behave like burst starts: each block has
 an independent 90° ambiguity and a fresh transient, both absorbed by the
 CRC-tracked packet extraction (qpsk_tpu.sync.extract_packets_tracked).
@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from qpsk_tpu.config import ModemConfig
-from qpsk_tpu.modem import _pick_block, _prec, _tmat_for
+from qpsk_tpu.modem import _pick_block, _prec, _tmat_for, _use_costas_kernel
 from qpsk_tpu.ops import acquire, costas as costas_ops, modmap, nco
 from qpsk_tpu.ops import rrc as rrc_ops, timing as timing_ops
 from qpsk_tpu.ops.cplx import CF32
@@ -105,10 +105,7 @@ def rx_stream_blockparallel(cfg: ModemConfig, pcm: jnp.ndarray,
 
     params = costas_ops.costas_params(cfg.loop_bw, cfg.damping,
                                       cfg.min_freq, cfg.max_freq)
-    use_pallas = cfg.costas_impl == "pallas" or (
-        cfg.costas_impl == "auto" and jax.default_backend() == "tpu"
-        and nblocks % 128 == 0)
-    if use_pallas:
+    if _use_costas_kernel(cfg):
         from qpsk_tpu.ops.pallas import costas_kernel
         cstate, derot = costas_kernel.costas_run_pallas(cstate, zb, params,
                                                         gear=gear)

@@ -3,8 +3,9 @@
 256 independent QPSK channels = a batch axis on every pipeline op (the whole
 modem broadcasts over leading axes by construction), sharded across the mesh
 with NamedSharding.  The Costas recurrence stays a ``lax.scan`` over time,
-but its carry is a (channels,) vector — channels ride the VPU lanes and the
-mesh, hiding the serial recurrence (SURVEY.md §7 hard-part #1).
+but its carry is a (channels,) vector — channels run in parallel on each
+device and across the mesh, hiding the serial recurrence (SURVEY.md §7
+hard-part #1).
 
 No collectives are needed in steady state (channels are independent); XLA
 inserts them only for metric reductions the caller asks for.

@@ -1,16 +1,16 @@
 """Multi-host execution helpers.
 
-The reference has no distribution of any kind (SURVEY.md §2); the TPU
+The reference has no distribution of any kind (SURVEY.md §2); the
 framework scales across hosts with JAX's multi-controller runtime: every
 host runs the same program, ``jax.distributed.initialize`` wires the
-cluster, and XLA compiles the collectives (the halo ``ppermute`` in
-parallel/stream.py rides ICI within a slice and DCN across hosts — no
-NCCL/MPI analogue is needed, XLA owns transport).
+cluster, and XLA compiles the collectives (on GPUs, NCCL carries them:
+the halo ``ppermute`` in parallel/stream.py rides NVLink between the
+cards of a host and the network between hosts).
 
-Typical use on each host of a pod slice:
+Typical use on each host of a cluster:
 
     from qpsk_tpu.parallel import multihost
-    multihost.initialize()                      # env-driven (TPU pods)
+    multihost.initialize("host0:1234", num_processes=2, process_id=0)
     mesh = multihost.global_mesh(("dp", "sp"), (jax.device_count() // 2, 2))
     ... build sharded arrays with jax.make_array_from_process_local_data ...
 
@@ -34,8 +34,8 @@ def initialize(coordinator_address: str | None = None,
     jax.distributed requirement, so this function deliberately makes no
     backend-touching probes itself.
 
-    On TPU pods all arguments come from the environment; pass them
-    explicitly for CPU/GPU clusters.  No-op when called twice, or when
+    On GPU and CPU clusters pass all three arguments explicitly (JAX
+    finds no cluster from the environment there).  No-op when called twice, or when
     called with no arguments outside any recognizable cluster environment
     (single-process runs and tests stay zero-config).
     """

@@ -10,9 +10,9 @@ the mesh's 'sp' axis.  Per block:
   no recurrence crosses the boundary).
 * **RRC matched filter** — overlap-save: each shard needs the previous
   shard's last ``ntaps-1`` mixed samples; one ``lax.ppermute`` neighbor
-  shift delivers the halo over ICI (shard 0 receives zeros, matching the
-  cold delay line, qpsk.c:37).  After the halo, the FIR is the same MXU
-  Toeplitz matmul as the serial path — outputs are **bit-identical** to the
+  shift delivers the halo between devices (shard 0 receives zeros,
+  matching the cold delay line, qpsk.c:37).  After the halo, the FIR is the
+  same Toeplitz matmul as the serial path — outputs are **bit-identical** to the
   single-device chain.
 * **timing + decimation** — per-frame, local.  This mode emits *undelayed*
   symbols (the reference's one-frame decimation delay, qpsk.c:186-191, is

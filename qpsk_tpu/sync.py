@@ -18,7 +18,7 @@ makes packets recoverable:
   packet disassembly.
 
 Everything is jnp; ``find_sync`` evaluates all hypotheses as one batched
-gather + CRC scan, which is TPU-friendly (hypotheses ride the batch axis).
+gather + CRC scan (hypotheses ride the batch axis).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Benchmark-harness structure tests: every suite must run end-to-end on
-the CPU mesh and emit the records the docs/driver consume (tiny sizes —
-these validate the harness, not silicon)."""
+the CPU mesh and emit the records the docs/driver consume (tiny, explicit
+sizes — these validate the harness, not a device)."""
 
 import numpy as np
+import pytest
 
 from qpsk_tpu.benchmarks import (costas_throughput, fec_throughput,
                                  frontend_throughput, rx_throughput,
@@ -45,7 +46,7 @@ def test_scaling_efficiency_records():
 def test_costas_throughput_records():
     for impl in ("scan", "pallas"):
         r = costas_throughput(impl=impl, channels=128, nsym=16,
-                              iters=1, inner=1)
+                              iters=1, inner=1, interpret=impl == "pallas")
         assert r["metric"] == f"costas_throughput_{impl}"
         assert r["value"] > 0
         assert r["unit"] == "symbols/s"
@@ -60,21 +61,40 @@ def test_fec_throughput_records():
 
 
 def test_frontend_throughput_roofline():
-    for impl in ("xla", "pallas"):
-        r = frontend_throughput(impl=impl, channels=8, frames=2,
-                                iters=1, inner=1)
-        assert r["metric"] == f"frontend_throughput_{impl}"
-        roof = r["roofline"]
-        assert roof["impl"] == impl
-        assert roof["bound"] in ("hbm", "mxu")
-        assert roof["ideal_s"] > 0 and roof["measured_s"] > 0
-        # the fused kernel's analytic traffic must be far below the staged
-        # chain's — that's its entire reason to exist
+    """The front-end suite runs; its roofline record prices the staged
+    chain against the card's published peaks (attached only on a device
+    in the peaks table), and an unknown device is an error."""
     from qpsk_tpu import ModemConfig
-    from qpsk_tpu.utils.roofline import frontend_cost
+    from qpsk_tpu.utils.roofline import (PEAKS, frontend_cost,
+                                         frontend_report, peaks_for)
+    r = frontend_throughput(channels=8, frames=2, iters=1, inner=1)
+    assert r["metric"] == "frontend_throughput" and r["value"] > 0
+    assert r["device_kind"] not in PEAKS and "roofline" not in r
+    with pytest.raises(ValueError, match="no published peaks"):
+        peaks_for(r["device_kind"])
+    h100 = peaks_for("NVIDIA H100 80GB HBM3")
     cfg = ModemConfig()
-    assert (frontend_cost(cfg, 128, 16, "pallas").hbm_bytes
-            < 0.2 * frontend_cost(cfg, 128, 16, "xla").hbm_bytes)
+    cost = frontend_cost(cfg, 8192, 8, h100)
+    # ~2.5 kFLOP and ~34 B of traffic per sample (modem.frontend_xla)
+    n = 8192 * 8 * cfg.frame_size
+    assert 2400 < cost.matmul_flops / n < 2700
+    assert 30 < cost.hbm_bytes / n < 40
+    rec = frontend_report(cfg, 8192, 8, 1e-3, h100)
+    assert rec["bound"] in ("hbm", "matmul")
+    assert 0 < rec["roofline_fraction"] < 1
+    # exact precision prices the FIR at the non-tensor-core f32 rate
+    exact = frontend_cost(ModemConfig(fir_precision="exact"), 8192, 8, h100)
+    assert exact.ideal_matmul_s > 7 * cost.ideal_matmul_s
+
+
+@pytest.mark.parametrize("fn", ["rx_throughput", "tx_throughput",
+                                "costas_throughput", "fec_throughput"])
+def test_default_sizes_need_gpu(fn):
+    """Default sizes are the GPU operating points: off the GPU a suite
+    called without sizes refuses instead of timing a CPU-sized run."""
+    import qpsk_tpu.benchmarks as B
+    with pytest.raises(ValueError, match="GPU"):
+        getattr(B, fn)()
 
 
 def test_fdm_throughput_record():
@@ -124,6 +144,6 @@ def test_costas_report_fields():
     rec = costas_report(2048, 1024, measured_pass_s=1.6e-4,
                         step_ns_by_channels={1024: 150.0, 2048: 156.0})
     assert rec["serial_steps_per_pass"] == 1024
-    assert rec["ns_per_step"] > 0 and rec["cycles_per_step"] > 0
-    assert rec["bound"] == "serial-step-issue"
+    assert rec["ns_per_step"] > 0 and rec["symbols_per_step"] == 2048
+    assert rec["bound"] == "serial-step-latency"
     assert 0.9 < rec["step_time_flatness"] <= 1.0

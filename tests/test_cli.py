@@ -49,9 +49,12 @@ def test_sweep_emits_points(capsys):
 
 
 def test_bench_suite_record(capsys):
-    (rec,) = _run(capsys, ["bench", "--suite", "serial"])
-    assert rec["metric"] == "single_stream_serial_throughput"
-    assert rec["value"] > 0
+    """bench times the GPU operating points: off the GPU it refuses with
+    its own exit code and prints no record (the suites themselves run at
+    toy sizes in test_benchmarks.py)."""
+    rc = cli.main(["bench", "--suite", "serial"])
+    cap = capsys.readouterr()
+    assert rc == 3 and "no GPU" in cap.err and cap.out == ""
 
 
 def test_rx_stream_mode(tmp_path, capsys):
@@ -187,9 +190,10 @@ def test_tx_stream_malformed_hex_line(tmp_path, capsys):
 
 
 def test_bench_suite_fdm_reachable(capsys):
-    """Review fix: --suite fdm is an accepted choice."""
-    (rec,) = _run(capsys, ["bench", "--suite", "fdm"])
-    assert rec["metric"] == "fdm_wideband_throughput" and rec["value"] > 0
+    """Review fix: --suite fdm is an accepted choice (the parser takes it;
+    off the GPU the run itself is refused, not the argument)."""
+    assert cli.main(["bench", "--suite", "fdm"]) == 3
+    assert "no GPU" in capsys.readouterr().err
 
 
 def test_rx_stream_fec_wiring(tmp_path, capsys):

@@ -1,9 +1,8 @@
-"""Decision-directed mode of the fused Costas kernel: bit-identical to
-the `lax.scan` twin (costas_run with modfam.dd_detector) for every
-generic-family constellation — both paths run the SAME literal op program
-(modfam.dd_err_ops): boundary-exact comparison decisions plus pinned
-error products, so there is no FMA-contraction, reduction-order, or
-MXU-truncation slack to diverge on (see dd_err_ops docstring)."""
+"""Decision-directed mode of the fused Costas kernel against the
+`lax.scan` twin (costas_run with modfam.dd_detector) for every
+generic-family constellation — both paths run the SAME op program
+(modfam.dd_err_ops, boundary-exact comparison decisions), in Pallas
+interpret mode on the CPU."""
 
 import numpy as np
 import jax
@@ -14,6 +13,13 @@ from qpsk_tpu.ops import costas as costas_ops
 from qpsk_tpu.ops import modfam
 from qpsk_tpu.ops.cplx import CF32
 from qpsk_tpu.ops.pallas import costas_kernel
+
+
+def kernel_traced(state, z, params, **kw):
+    """(C, T) twin of costas_run_traced through the kernel."""
+    st, d, ft = costas_kernel.costas_run_tm(state, z.re.T, z.im.T, params,
+                                            interpret=True, **kw)
+    return st, CF32(d.re.T, d.im.T), ft
 
 PARAMS = costas_ops.costas_params(0.0628, 0.7071, -1.0, 1.0)
 
@@ -33,9 +39,7 @@ def test_dd_kernel_matches_scan(name):
     """Interpret-mode closeness: trajectories track to ~1 ULP/step (the
     phase-update FMA-contraction choice is per-compilation-context on
     XLA:CPU, so exact interpret equality is not a stable invariant).
-    BIT-equality of every plane is asserted on the real chip by
-    tools/check_dd_tpu.py, where the kernel's staging planes pin Mosaic's
-    contraction and XLA:TPU does not contract."""
+    chip_smoke.py compares the two lowerings on the card."""
     c, t = 256, 512
     sym = _noisy_symbols(name, c, t)
     st0 = costas_ops.costas_init((c,), freq=0.01)
@@ -43,8 +47,7 @@ def test_dd_kernel_matches_scan(name):
     st_a, out_a, tr_a = costas_ops.costas_run_traced(st0, sym, PARAMS,
                                                      detector=det)
     dd = (name, 1.45)
-    st_b, out_b, tr_b = costas_kernel.costas_run_pallas_traced(
-        st0, sym, PARAMS, dd=dd, interpret=True)
+    st_b, out_b, tr_b = kernel_traced(st0, sym, PARAMS, dd=dd)
     np.testing.assert_allclose(np.asarray(out_a.re), np.asarray(out_b.re),
                                atol=1e-5)
     np.testing.assert_allclose(np.asarray(out_a.im), np.asarray(out_b.im),
@@ -62,27 +65,24 @@ def test_dd_kernel_block_trace_matches_scan_boundaries():
     reads back.  Closeness, not bit-equality: XLA:CPU's FMA-contraction
     choice for the phase update is per-compilation-context (the scan and
     the interpret-mode kernel can round 1 ULP apart per step at some
-    inputs); the bit-equality claim lives on hardware
-    (tools/check_dd_tpu.py), where Mosaic's contraction is pinned by the
-    kernel's staging planes and XLA:TPU does not contract."""
+    inputs)."""
     c, t, every = 128, 512, 128
     sym = _noisy_symbols("8psk", c, t, seed=3)
     st0 = costas_ops.costas_init((c,), freq=-0.02)
     det = modfam.dd_detector(modfam.get("8psk"), scale=1.45)
     _, _, tr = costas_ops.costas_run_traced(st0, sym, PARAMS, detector=det)
     dd = ("8psk", 1.45)
-    _, _, trb = costas_kernel.costas_run_pallas_traced(
-        st0, sym, PARAMS, dd=dd, trace_every=every, interpret=True)
+    _, _, trb = kernel_traced(st0, sym, PARAMS, dd=dd, trace_every=every)
     np.testing.assert_allclose(
         np.asarray(tr)[:, every - 1::every], np.asarray(trb), atol=1e-6)
 
 
 def test_rx_stream_forced_pallas_dd_matches_scan():
     """Whole fused RX stream with costas_impl='pallas' (DD kernel engaged
-    on the generic family) decodes bit-identically to the scan config —
-    the dispatch-level equality the hardware gate replays on the TPU."""
+    on the generic family, interpret mode) decodes bit-identically to the
+    scan config."""
     from qpsk_tpu import ModemConfig, rx_init, tx_init
-    from qpsk_tpu.modem import rx_stream, tx_stream
+    from qpsk_tpu.modem import _rx_stream_fused, tx_stream
 
     base = dict(modulation="8psk")
     rng = np.random.default_rng(5)
@@ -95,13 +95,13 @@ def test_rx_stream_forced_pallas_dd_matches_scan():
     outs = {}
     for impl in ("scan", "pallas"):
         c = ModemConfig(**base, costas_impl=impl)
-        _, out = rx_stream(c, rx_init(c, batch_shape=(128,)),
-                           pcm.reshape(128, nframes, cfg.frame_size))
+        _, out = _rx_stream_fused(c, rx_init(c, batch_shape=(128,)),
+                                  pcm.reshape(128, nframes, cfg.frame_size),
+                                  interpret=True)
         outs[impl] = out
     # decode (bits) must agree exactly; the symbol/freq trajectories are
     # allowed interpret-mode ULP drift (XLA:CPU FMA-contraction context,
-    # see test_dd_kernel_block_trace_matches_scan_boundaries) — hardware
-    # bit-equality of all planes is the gate's claim (check_dd_tpu.py)
+    # see test_dd_kernel_block_trace_matches_scan_boundaries)
     np.testing.assert_array_equal(np.asarray(outs["scan"].bits),
                                   np.asarray(outs["pallas"].bits))
     np.testing.assert_allclose(np.asarray(outs["scan"].symbols.re),

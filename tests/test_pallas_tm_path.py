@@ -1,119 +1,37 @@
-"""The zero-glue RX fast path (round 3): front-end kernel emits one-frame-
-delayed TIME-MAJOR picks straight into the fused Costas kernel
-(rx_frontend_fused_tm -> costas_run_pallas_tm), with the freq trace at
-block rate.  Everything here must be BIT-exact against the composed
-non-tm path — the tm mode moves data, not bits."""
+"""The kernel's time-major entry and the RX stream through it: the fused
+Costas kernel reads (T, C) planes, writes the frequency trace at frame
+rate, and leaves slicing to XLA.  Interpret mode on the CPU."""
 
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from qpsk_tpu import ModemConfig, rx_init
 from qpsk_tpu.ops.costas import costas_init, costas_params, gear_for
 from qpsk_tpu.ops.cplx import CF32
-from qpsk_tpu.ops.pallas.costas_kernel import (costas_run_pallas_tm,
-                                               costas_run_pallas_traced)
-from qpsk_tpu.ops.pallas.frontend_kernel import (frontend_tm_supported,
-                                                 rx_frontend_fused,
-                                                 rx_frontend_fused_tm)
+from qpsk_tpu.ops.pallas.costas_kernel import costas_run_pallas, costas_run_tm
 
 CFG = ModemConfig()
-
-
-def _pcm(c, nframes, seed=0):
-    rng = np.random.default_rng(seed)
-    return jnp.asarray(rng.integers(-12000, 12000,
-                                    (c, nframes, CFG.frame_size),
-                                    dtype=np.int16))
-
-
-def test_frontend_tm_matches_host_delay_fold():
-    """tm emission == kernel picks + host delay concat + (C,T) fold,
-    bit-exact, including the carried decim_delay."""
-    c, nframes = 128, 4
-    assert frontend_tm_supported(CFG, (c,), CFG.frame_size, nframes)
-    pcm = _pcm(c, nframes, seed=1)
-    st = rx_init(CFG, batch_shape=(c,))
-    nsym = CFG.symbols_per_frame
-    rng = np.random.default_rng(2)
-    dd = CF32(jnp.asarray(rng.normal(size=(c, nsym)), jnp.float32),
-              jnp.asarray(rng.normal(size=(c, nsym)), jnp.float32))
-
-    zr, zi, idx_tm, ph_tm, tl_tm, ndd, _pw = rx_frontend_fused_tm(
-        CFG, pcm, st.nco_phase, st.fir_tail, dd, interpret=True)
-
-    picks, idx, ph, tl = rx_frontend_fused(
-        CFG, pcm, st.nco_phase, st.fir_tail, interpret=True)
-    delayed_re = np.concatenate([np.asarray(dd.re)[:, None],
-                                 np.asarray(picks.re)[:, :-1]], axis=1)
-    delayed_im = np.concatenate([np.asarray(dd.im)[:, None],
-                                 np.asarray(picks.im)[:, :-1]], axis=1)
-    t = nframes * nsym
-    np.testing.assert_array_equal(np.asarray(zr),
-                                  delayed_re.reshape(c, t).T)
-    np.testing.assert_array_equal(np.asarray(zi),
-                                  delayed_im.reshape(c, t).T)
-    np.testing.assert_array_equal(np.asarray(ndd.re),
-                                  np.asarray(picks.re)[:, -1])
-    np.testing.assert_array_equal(np.asarray(ndd.im),
-                                  np.asarray(picks.im)[:, -1])
-    np.testing.assert_array_equal(np.asarray(idx_tm), np.asarray(idx))
-    np.testing.assert_array_equal(np.asarray(ph_tm.re), np.asarray(ph.re))
-    np.testing.assert_array_equal(np.asarray(tl_tm.re), np.asarray(tl.re))
-
-
-def test_frontend_tm_chains_across_calls():
-    """Two chained tm calls == one tm call over the concatenation: the
-    in-kernel delay scratch hands off through decim_delay (indices exact;
-    picks to the carried-phasor re-association tolerance of the existing
-    non-tm chain test)."""
-    c = 128
-    pcm = _pcm(c, 6, seed=3)
-    st = rx_init(CFG, batch_shape=(c,))
-    dd0 = CF32(st.decim_delay.re, st.decim_delay.im)
-
-    z1r, z1i, i1, ph1, tl1, dd1, _ = rx_frontend_fused_tm(
-        CFG, pcm[:, :3], st.nco_phase, st.fir_tail, dd0, interpret=True)
-    z2r, z2i, i2, _, _, dd2, _ = rx_frontend_fused_tm(
-        CFG, pcm[:, 3:], ph1, tl1, dd1, interpret=True)
-
-    zr, zi, idx, _, _, dd, _ = rx_frontend_fused_tm(
-        CFG, pcm, st.nco_phase, st.fir_tail, dd0, interpret=True)
-    np.testing.assert_allclose(
-        np.concatenate([np.asarray(z1r), np.asarray(z2r)]), np.asarray(zr),
-        atol=3e-4)
-    np.testing.assert_allclose(
-        np.concatenate([np.asarray(z1i), np.asarray(z2i)]), np.asarray(zi),
-        atol=3e-4)
-    np.testing.assert_array_equal(
-        np.concatenate([np.asarray(i1), np.asarray(i2)], axis=1),
-        np.asarray(idx))
-    np.testing.assert_allclose(np.asarray(dd2.re), np.asarray(dd.re),
-                               atol=3e-4)
 
 
 def test_costas_trace_every_matches_per_symbol():
     """trace_every returns exactly the frame-boundary values of the
     per-symbol trace, and derot/state are bit-identical between the two
-    kernel modes (trace_blocks changes stores, not arithmetic) — plain
-    and gear-shift loops."""
-    # t = 640 = 5 * 128 regression-pins the tile pick: halving tt alone
-    # cannot shed the odd factor, it must first cap at trace_every
-    c, nsf = 128, 128
+    trace modes (the trace changes stores, not arithmetic) — plain and
+    gear-shift loops; T = 640 = 5 x 128 is not a power of two."""
+    c, nsf = 40, 128
     rng = np.random.default_rng(4)
     params = costas_params(loop_bw=2.0 * np.pi / 100.0)
     for t, gear in ((512, None), (640, None),
                     (512, gear_for(2.0 * np.pi / 200.0, np.sqrt(0.5)))):
-        sym = CF32(jnp.asarray(rng.normal(size=(c, t)), jnp.float32),
-                   jnp.asarray(rng.normal(size=(c, t)), jnp.float32))
+        zr = jnp.asarray(rng.normal(size=(t, c)), jnp.float32)
+        zi = jnp.asarray(rng.normal(size=(t, c)), jnp.float32)
         st = costas_init(batch_shape=(c,), gear=gear is not None)
-        s_a, d_a, tr_a = costas_run_pallas_traced(st, sym, params, gear=gear,
-                                                  interpret=True)
-        s_b, d_b, tr_b = costas_run_pallas_traced(st, sym, params, gear=gear,
-                                                  trace_every=nsf,
-                                                  interpret=True)
+        s_a, d_a, tr_a = costas_run_tm(st, zr, zi, params, gear=gear,
+                                       interpret=True)
+        s_b, d_b, tr_b = costas_run_tm(st, zr, zi, params, gear=gear,
+                                       trace_every=nsf, interpret=True)
         np.testing.assert_array_equal(np.asarray(d_a.re), np.asarray(d_b.re))
         np.testing.assert_array_equal(np.asarray(d_a.im), np.asarray(d_b.im))
         np.testing.assert_array_equal(np.asarray(s_a.freq),
@@ -125,116 +43,68 @@ def test_costas_trace_every_matches_per_symbol():
 
 
 def test_costas_tm_entry_matches_channel_major():
-    """costas_run_pallas_tm on (T, C) planes == costas_run_pallas_traced
-    on the (C, T) symbols, bit-exact."""
-    c, t = 128, 256
+    """costas_run_tm on (T, C) planes == costas_run_pallas on the (C, T)
+    symbols, bit-exact."""
+    c, t = 64, 256
     rng = np.random.default_rng(5)
     sym = CF32(jnp.asarray(rng.normal(size=(c, t)), jnp.float32),
                jnp.asarray(rng.normal(size=(c, t)), jnp.float32))
     params = costas_params(loop_bw=2.0 * np.pi / 100.0)
     st = costas_init(batch_shape=(c,))
-    s_a, d_a, tr_a = costas_run_pallas_traced(st, sym, params,
-                                              interpret=True)
-    s_b, d_b, tr_b, _ = costas_run_pallas_tm(st, sym.re.T, sym.im.T, params,
-                                             interpret=True)
+    s_a, d_a = costas_run_pallas(st, sym, params, interpret=True)
+    s_b, d_b, _ = costas_run_tm(st, sym.re.T, sym.im.T, params,
+                                interpret=True)
     np.testing.assert_array_equal(np.asarray(d_a.re),
                                   np.asarray(d_b.re).T)
     np.testing.assert_array_equal(np.asarray(d_a.im),
                                   np.asarray(d_b.im).T)
     np.testing.assert_array_equal(np.asarray(s_a.freq), np.asarray(s_b.freq))
-    np.testing.assert_array_equal(np.asarray(tr_a), np.asarray(tr_b))
-
-
-def test_rx_stream_tm_path_bit_exact(monkeypatch):
-    """rx_stream through the tm fast path == the composed non-tm path
-    (kernel front-end + host delay/fold + Costas kernel), bit-for-bit:
-    same bits, same symbols, same freq readback, same carried state."""
-    from qpsk_tpu import modem as modem_mod
-    from qpsk_tpu.modem import rx_stream
-
-    cfg = dataclasses.replace(CFG, frontend_impl="pallas",
-                              costas_impl="pallas")
-    c, nframes = 128, 8
-    pcm = _pcm(c, nframes, seed=6)
-    st = rx_init(cfg, batch_shape=(c,))
-
-    assert modem_mod._use_tm_path(cfg, (c,), cfg.frame_size, nframes, True)
-    st_tm, out_tm = rx_stream(cfg, st, pcm)
-
-    monkeypatch.setattr(modem_mod, "_use_tm_path",
-                        lambda *a, **k: False)
-    st_nt, out_nt = rx_stream(cfg, st, pcm)
-
-    np.testing.assert_array_equal(np.asarray(out_tm.bits),
-                                  np.asarray(out_nt.bits))
-    np.testing.assert_array_equal(np.asarray(out_tm.symbols.re),
-                                  np.asarray(out_nt.symbols.re))
-    np.testing.assert_array_equal(np.asarray(out_tm.freq_hz),
-                                  np.asarray(out_nt.freq_hz))
-    np.testing.assert_array_equal(np.asarray(out_tm.timing_index),
-                                  np.asarray(out_nt.timing_index))
-    np.testing.assert_array_equal(np.asarray(st_tm.decim_delay.re),
-                                  np.asarray(st_nt.decim_delay.re))
-    np.testing.assert_array_equal(np.asarray(st_tm.costas.phase),
-                                  np.asarray(st_nt.costas.phase))
-    np.testing.assert_array_equal(np.asarray(st_tm.fir_tail.re),
-                                  np.asarray(st_nt.fir_tail.re))
 
 
 def test_rx_stream_padded_matches_unpadded():
-    """The channel-padding upgrade (_rx_stream_fused_padded) is value-
-    transparent: live channels' outputs and state equal the unpadded
-    call's exactly, for both the XLA lowering and the (forced, interpret)
-    Pallas-Costas lowering."""
+    """rx_stream through the kernel on a channel count off the program
+    width (5 of 16 lanes live) equals the scan lowering: same bits, and
+    symbols, readback and state to the interpret-mode tolerance."""
     from qpsk_tpu import modem as modem_mod
-    from qpsk_tpu.modem import rx_stream
 
     c, nframes = 5, 8
     rng = np.random.default_rng(7)
     pcm = jnp.asarray(rng.integers(-12000, 12000,
                                    (c, nframes, CFG.frame_size),
                                    dtype=np.int16))
-    for cfg in (CFG, dataclasses.replace(CFG, costas_impl="pallas")):
-        st = rx_init(cfg, batch_shape=(c,))
-        st_p, out_p = modem_mod._rx_stream_fused_padded(cfg, st, pcm)
-        # reference: same lowering, unpadded (for the pallas cfg the
-        # unpadded call would assert on c%128, so compare against the
-        # default scan path instead — the kernel is bit-exact vs it)
-        ref_cfg = CFG
-        st_r, out_r = rx_stream(ref_cfg, rx_init(ref_cfg, batch_shape=(c,)),
-                                pcm)
-        # XLA picks different matmul reduction orders for different batch
-        # shapes, so floats agree to tolerance, not bitwise; the decoded
-        # bits must still match exactly here
-        np.testing.assert_array_equal(np.asarray(out_p.bits),
-                                      np.asarray(out_r.bits))
-        np.testing.assert_allclose(np.asarray(out_p.symbols.re),
-                                   np.asarray(out_r.symbols.re), atol=1e-3)
-        np.testing.assert_allclose(np.asarray(out_p.freq_hz),
-                                   np.asarray(out_r.freq_hz), atol=0.1)
-        np.testing.assert_allclose(np.asarray(st_p.costas.phase),
-                                   np.asarray(st_r.costas.phase), atol=1e-3)
-        np.testing.assert_allclose(np.asarray(st_p.decim_delay.re),
-                                   np.asarray(st_r.decim_delay.re),
-                                   atol=1e-3)
-        assert out_p.bits.shape[0] == c
+    cfg = dataclasses.replace(CFG, costas_impl="pallas")
+    st_p, out_p = modem_mod._rx_stream_fused(
+        cfg, rx_init(cfg, batch_shape=(c,)), pcm, interpret=True)
+    st_r, out_r = modem_mod.rx_stream(CFG, rx_init(CFG, batch_shape=(c,)),
+                                      pcm)
+    np.testing.assert_array_equal(np.asarray(out_p.bits),
+                                  np.asarray(out_r.bits))
+    np.testing.assert_allclose(np.asarray(out_p.symbols.re),
+                               np.asarray(out_r.symbols.re), atol=1e-3)
+    np.testing.assert_allclose(np.asarray(out_p.freq_hz),
+                               np.asarray(out_r.freq_hz), atol=0.1)
+    np.testing.assert_allclose(np.asarray(st_p.costas.phase),
+                               np.asarray(st_r.costas.phase), atol=1e-3)
+    np.testing.assert_allclose(np.asarray(st_p.decim_delay.re),
+                               np.asarray(st_r.decim_delay.re), atol=1e-3)
+    assert out_p.bits.shape[0] == c
 
 
 def test_rx_stream_padded_channel_less_stream():
-    """A channel-less (nframes, frame_size) stream through the padding
-    wrapper decodes identically to the plain lowering and keeps its
-    channel-less shapes."""
+    """A channel-less (nframes, frame_size) stream through the kernel
+    decodes identically to the scan lowering and keeps its channel-less
+    shapes."""
     from qpsk_tpu import modem as modem_mod
-    from qpsk_tpu.modem import rx_stream
 
     nframes = 8
     rng = np.random.default_rng(8)
     pcm = jnp.asarray(rng.integers(-12000, 12000,
                                    (nframes, CFG.frame_size),
                                    dtype=np.int16))
-    st = rx_init(CFG)
-    st_p, out_p = modem_mod._rx_stream_fused_padded(CFG, st, pcm)
-    st_r, out_r = rx_stream(CFG, rx_init(CFG), pcm)
+    cfg = dataclasses.replace(CFG, costas_impl="pallas")
+    st_p, out_p = modem_mod._rx_stream_fused(cfg, rx_init(cfg), pcm,
+                                             interpret=True)
+    st_r, out_r = modem_mod.rx_stream(CFG, rx_init(CFG), pcm)
     assert out_p.bits.shape == out_r.bits.shape == (nframes,
                                                     2 * CFG.symbols_per_frame)
     np.testing.assert_array_equal(np.asarray(out_p.bits),
@@ -244,23 +114,30 @@ def test_rx_stream_padded_channel_less_stream():
     np.testing.assert_allclose(np.asarray(st_p.costas.phase),
                                np.asarray(st_r.costas.phase), atol=1e-3)
     assert np.asarray(st_p.nco_phase.re).shape == ()
+    assert np.asarray(st_p.costas.freq).shape == ()
 
 
 def test_costas_emit_bits_matches_slicer():
-    """In-kernel packed dibits == modmap.demod_bits on the derot symbols,
-    bit-for-bit, plain and gear loops."""
+    """The XLA slicer on the kernel's derot planes gives the scan's hard
+    decisions bit for bit, plain and gear loops."""
+    from qpsk_tpu.ops import costas as costas_ops
     from qpsk_tpu.ops.modmap import demod_bits
 
-    c, t = 128, 512
+    c, t = 48, 512
     rng = np.random.default_rng(9)
     zr = jnp.asarray(rng.normal(size=(t, c)), jnp.float32)
     zi = jnp.asarray(rng.normal(size=(t, c)), jnp.float32)
     params = costas_params(loop_bw=2.0 * np.pi / 100.0)
     for gear in (None, gear_for(2.0 * np.pi / 200.0, np.sqrt(0.5))):
         st = costas_init(batch_shape=(c,), gear=gear is not None)
-        _, derot_tm, _, bits = costas_run_pallas_tm(
-            st, zr, zi, params, gear=gear, trace_every=128,
-            emit_bits=True, interpret=True)
-        assert bits is not None and bits.shape == (c, 2 * t)
-        want = demod_bits(CF32(derot_tm.re.T, derot_tm.im.T))
-        np.testing.assert_array_equal(np.asarray(bits), np.asarray(want))
+        _, derot_tm, _ = costas_run_tm(st, zr, zi, params, gear=gear,
+                                       trace_every=128, interpret=True)
+        bits = demod_bits(CF32(derot_tm.re.T, derot_tm.im.T))
+        sym = CF32(zr.T, zi.T)
+        if gear is None:
+            _, ref = costas_ops.costas_run(st, sym, params)
+        else:
+            _, ref = costas_ops.costas_run_gear(st, sym, params, gear)
+        assert bits.shape == (c, 2 * t)
+        np.testing.assert_array_equal(np.asarray(bits),
+                                      np.asarray(demod_bits(ref)))

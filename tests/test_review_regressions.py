@@ -134,31 +134,6 @@ def test_timeparallel_fractional_mode_supported():
     np.testing.assert_allclose(np.asarray(fhz), 50.0, atol=15.0)
 
 
-def test_forced_pallas_unsupported_config_raises():
-    """frontend_impl/tx_impl='pallas' on a kernel-unsupported config must
-    fail loudly, not silently substitute power timing / emit unwritten
-    PCM (review r2)."""
-    import pytest
-
-    from qpsk_tpu.modem import _use_fused_frontend
-    from qpsk_tpu.ops.cplx import CF32
-    from qpsk_tpu.ops.pallas.tx_kernel import tx_modulate_fused
-    from qpsk_tpu.state import tx_init
-
-    cfg = ModemConfig(frontend_impl="pallas", timing_mode="tracking")
-    with pytest.raises(ValueError, match="only implements"):
-        _use_fused_frontend(cfg, (8,), cfg.frame_size, 4)
-
-    # un-tiled symbol counts refuse inside the TX kernel wrapper
-    cfg2 = ModemConfig()
-    st = tx_init(cfg2, batch_shape=(8,))
-    bad = CF32(jnp.zeros((8, 100), jnp.float32),
-               jnp.zeros((8, 100), jnp.float32))
-    with pytest.raises(AssertionError, match="fused TX needs"):
-        tx_modulate_fused(cfg2, bad, st.nco_phase, st.fir_tail,
-                          interpret=True)
-
-
 def test_checkpoint_tolerates_treedef_repr_drift(tmp_path):
     """A saved state whose pytree class later gained None fields must
     still load (leaf count/shapes align); genuine drift still raises

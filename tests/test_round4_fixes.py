@@ -3,10 +3,10 @@
 * comparison-program slicer (modfam.slice_labels_cmp / demod_bits_cmp) —
   the DD loop's own decisions as the hard slicer, geometrically identical
   to the score-argmax twin;
-* fused Costas kernel packed-label emission (emit_label) — the generic
-  family's analogue of the QPSK emit_bits dibit slicer;
-* frame-rate AGC on the zero-glue tm path (ops/agc.agc_gains_tm +
-  in-kernel gain application), bit-identical to the composed agc_stream;
+* the fused Costas kernel's DD derotation sliced by demod_bits_cmp gives
+  the scan's decisions;
+* frame-rate AGC gains from time-major planes (ops/agc.agc_gains_tm) and
+  their in-kernel application, bit-identical to the composed agc_stream;
 * StreamDemodulator slip walk uses max_step = bits-per-symbol (ADVICE r3:
   the default max_step=2 silently disabled symbol-slip adoption for
   8PSK/16QAM and let BPSK walk two symbols per packet).
@@ -66,12 +66,9 @@ def test_dd_err_ops_label_does_not_change_error(name):
     z = CF32(jnp.asarray(rng.standard_normal(512).astype(np.float32)),
              jnp.asarray(rng.standard_normal(512).astype(np.float32)))
     consts = modfam.dd_constants(m, 1.45)
-    ident = lambda u, v: (u, v)
-    e0 = modfam.dd_err_ops(name, m.M, z.re, z.im,
-                           get=lambda i: consts[i], stage=ident)
+    e0 = modfam.dd_err_ops(name, m.M, z.re, z.im, get=lambda i: consts[i])
     e1, lab = modfam.dd_err_ops(name, m.M, z.re, z.im,
-                                get=lambda i: consts[i], stage=ident,
-                                want_label=True)
+                                get=lambda i: consts[i], want_label=True)
     np.testing.assert_array_equal(np.asarray(e0), np.asarray(e1))
     np.testing.assert_array_equal(
         np.asarray(lab),
@@ -83,12 +80,12 @@ def test_dd_err_ops_label_does_not_change_error(name):
 
 @pytest.mark.parametrize("name", ["bpsk", "8psk", "16qam"])
 def test_kernel_packed_labels(name):
-    """emit_label bits == demod_bits_cmp on the kernel's own derot
-    symbols, bit-for-bit (interpret mode; the hardware twin is
-    tools/check_dd_tpu.py)."""
+    """demod_bits_cmp on the kernel's DD derot symbols == the same slicer
+    on the scan's, bit-for-bit (interpret mode; the kernel leaves slicing
+    to XLA)."""
     m = modfam.get(name)
     rng = np.random.default_rng(2)
-    c, t, sc = 128, 256, 1.45
+    c, t, sc = 64, 256, 1.45
     lab = rng.integers(0, m.M, (t, c))
     zr = jnp.asarray((m.points_re[lab] * sc
                       + 0.05 * rng.standard_normal((t, c))).astype(np.float32))
@@ -96,18 +93,20 @@ def test_kernel_packed_labels(name):
                       + 0.05 * rng.standard_normal((t, c))).astype(np.float32))
     params = costas_ops.costas_params(0.0628, np.sqrt(0.5), -1.0, 1.0)
     st0 = costas_ops.costas_init((c,))
-    _, derot_tm, _, bits = costas_kernel.costas_run_pallas_tm(
-        st0, zr, zi, params, dd=(name, sc), emit_label=True, interpret=True)
-    assert bits is not None
-    derot = CF32(derot_tm.re.T, derot_tm.im.T)
+    _, derot_tm, _ = costas_kernel.costas_run_tm(
+        st0, zr, zi, params, dd=(name, sc), interpret=True)
+    bits = modfam.demod_bits_cmp(CF32(derot_tm.re.T, derot_tm.im.T), m,
+                                 scale=sc)
+    _, ref = costas_ops.costas_run(
+        st0, CF32(zr.T, zi.T), params,
+        detector=modfam.dd_detector(m, scale=sc))
     np.testing.assert_array_equal(
-        np.asarray(bits),
-        np.asarray(modfam.demod_bits_cmp(derot, m, scale=sc)))
+        np.asarray(bits), np.asarray(modfam.demod_bits_cmp(ref, m, scale=sc)))
     assert bits.shape == (c, m.bps * t)
 
 
 # ---------------------------------------------------------------------------
-# AGC on the tm path
+# AGC gains from time-major planes
 
 def test_agc_gains_tm_matches_stream():
     """agc_gains_tm on (T, C) planes == agc_stream's gains/estimate on the
@@ -135,7 +134,7 @@ def test_kernel_agc_gains_match_prescaled():
     """In-kernel per-frame gain application == scaling the planes first
     (one IEEE multiply either way), bitwise through the whole DD loop."""
     rng = np.random.default_rng(4)
-    c, f, nsf = 128, 8, 32
+    c, f, nsf = 40, 8, 32
     t = f * nsf
     zr = jnp.asarray((0.6 + 0.1 * rng.standard_normal((t, c))
                       ).astype(np.float32))
@@ -145,88 +144,16 @@ def test_kernel_agc_gains_match_prescaled():
     gx = jnp.asarray(np.asarray(gains).repeat(nsf, axis=0))
     params = costas_ops.costas_params(0.0628, np.sqrt(0.5), -1.0, 1.0)
     st0 = costas_ops.costas_init((c,))
-    st_a, d_a, tr_a, b_a = costas_kernel.costas_run_pallas_tm(
-        st0, zr * gx, zi * gx, params, dd=("16qam", 1.45), emit_label=True,
+    st_a, d_a, tr_a = costas_kernel.costas_run_tm(
+        st0, zr * gx, zi * gx, params, dd=("16qam", 1.45), trace_every=nsf,
         interpret=True)
-    st_b, d_b, tr_b, b_b = costas_kernel.costas_run_pallas_tm(
-        st0, zr, zi, params, dd=("16qam", 1.45), emit_label=True,
+    st_b, d_b, tr_b = costas_kernel.costas_run_tm(
+        st0, zr, zi, params, dd=("16qam", 1.45), trace_every=nsf,
         gains=gains, interpret=True)
     np.testing.assert_array_equal(np.asarray(d_a.re), np.asarray(d_b.re))
     np.testing.assert_array_equal(np.asarray(d_a.im), np.asarray(d_b.im))
-    np.testing.assert_array_equal(np.asarray(b_a), np.asarray(b_b))
     np.testing.assert_array_equal(np.asarray(st_a.freq), np.asarray(st_b.freq))
     np.testing.assert_array_equal(np.asarray(tr_a), np.asarray(tr_b))
-
-
-def test_16qam_agc_tm_path_matches_composed(monkeypatch):
-    """rx_stream 16QAM+AGC through the tm fast path == the composed path
-    (kernel front-end + XLA agc_stream + Costas kernel) — the AGC no
-    longer breaks the zero-glue composition.
-
-    CPU bar: DECODE equality + closeness, the established standard for
-    kernel twins on this backend (CLAUDE.md): the tm path's per-frame
-    powers come from the front-end kernel while the composed path
-    computes them in XLA, and XLA:CPU FMA-contracts ``a*a + b*b``
-    per-compilation-context EVEN ACROSS an optimization_barrier (measured
-    round 4: jitted vs eager _frame_power differ by 1 ULP on ~10% of
-    frames) — so CPU gain values can differ by ~1 ULP and the loop
-    trajectories drift at the ULP level.  The bit-equality claim is the
-    hardware gate's (tools/check_tm_tpu.py: Mosaic scratch staging is a
-    real barrier and XLA:TPU does not contract)."""
-    from qpsk_tpu import modem as modem_mod
-
-    cfg = ModemConfig(modulation="16qam", agc=True,
-                      frontend_impl="pallas", costas_impl="pallas")
-    c, nframes = 128, 8
-    rng = np.random.default_rng(5)
-    payload = rng.integers(0, 2, (c, nframes, cfg.bits_per_frame),
-                           dtype=np.int32)
-    _, pcm = tx_stream(cfg, tx_init(cfg, batch_shape=(c,)),
-                       jnp.asarray(payload), tx_offset_hz=30.0)
-    st = rx_init(cfg, batch_shape=(c,))
-
-    assert modem_mod._use_tm_path(cfg, (c,), cfg.frame_size, nframes, True)
-    st_tm, out_tm = rx_stream(cfg, st, pcm)
-
-    monkeypatch.setattr(modem_mod, "_use_tm_path", lambda *a, **k: False)
-    st_nt, out_nt = rx_stream(cfg, st, pcm)
-
-    bits_a, bits_b = np.asarray(out_tm.bits), np.asarray(out_nt.bits)
-    assert (bits_a != bits_b).mean() < 1e-3, (bits_a != bits_b).mean()
-    np.testing.assert_allclose(np.asarray(out_tm.symbols.re),
-                               np.asarray(out_nt.symbols.re), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(out_tm.symbols.im),
-                               np.asarray(out_nt.symbols.im), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(out_tm.freq_hz),
-                               np.asarray(out_nt.freq_hz), atol=0.05)
-    np.testing.assert_allclose(np.asarray(st_tm.agc), np.asarray(st_nt.agc),
-                               rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(st_tm.costas.phase),
-                               np.asarray(st_nt.costas.phase), atol=1e-4)
-
-
-def test_fe_kernel_powers_match_frame_power():
-    """The front-end kernel's per-frame pick powers equal the ops/agc
-    halves-tree on the emitted planes to ~1 ULP (exact up to the
-    per-context FMA contraction XLA:CPU applies; the hardware gate owns
-    exactness)."""
-    from qpsk_tpu.ops.pallas.frontend_kernel import rx_frontend_fused_tm
-
-    cfg = ModemConfig(modulation="16qam", agc=True,
-                      frontend_impl="pallas", costas_impl="pallas")
-    c, nframes = 128, 8
-    rng = np.random.default_rng(6)
-    pcm = jnp.asarray(rng.integers(-12000, 12000,
-                                   (c, nframes, cfg.frame_size),
-                                   dtype=np.int16))
-    st = rx_init(cfg, batch_shape=(c,))
-    zr, zi, _, _, _, _, powers = rx_frontend_fused_tm(
-        cfg, pcm, st.nco_phase, st.fir_tail, st.decim_delay)
-    assert powers is not None and powers.shape == (nframes, c)
-    ref = agc_ops._frame_power(zr.reshape(nframes, -1, c),
-                               zi.reshape(nframes, -1, c), axis=1)
-    np.testing.assert_allclose(np.asarray(powers), np.asarray(ref),
-                               rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -310,42 +237,6 @@ def test_stream_slip_8psk_adopts_shift():
     assert len(ok) >= npkts - 12, (len(ok), len(got))
     wanted = {p.tobytes() for p in payload.astype(np.uint8)}
     assert all(p.payload.astype(np.uint8).tobytes() in wanted for p in ok)
-
-
-def test_qpsk_gear_agc_tm_path(monkeypatch):
-    """QPSK + gear-shift loop + AGC through the tm path (in-kernel gains
-    compose with the 4-plane gear state and the packed dibit slicer) vs
-    the composed path — CPU bar: decode equality + closeness (the AGC
-    power computation differs per compilation context on XLA:CPU)."""
-    import dataclasses
-
-    from qpsk_tpu import modem as modem_mod
-    from qpsk_tpu.config import TAU
-
-    cfg = ModemConfig(agc=True, loop_bw_track=TAU / 200.0,
-                      frontend_impl="pallas", costas_impl="pallas")
-    c, nframes = 128, 8
-    rng = np.random.default_rng(8)
-    payload = rng.integers(0, 2, (c, nframes, cfg.bits_per_frame),
-                           dtype=np.int32)
-    _, pcm = tx_stream(cfg, tx_init(cfg, batch_shape=(c,)),
-                       jnp.asarray(payload), tx_offset_hz=40.0)
-    st = rx_init(cfg, batch_shape=(c,))
-
-    assert modem_mod._use_tm_path(cfg, (c,), cfg.frame_size, nframes, True)
-    st_tm, out_tm = rx_stream(cfg, st, pcm)
-
-    monkeypatch.setattr(modem_mod, "_use_tm_path", lambda *a, **k: False)
-    st_nt, out_nt = rx_stream(cfg, st, pcm)
-
-    bits_a, bits_b = np.asarray(out_tm.bits), np.asarray(out_nt.bits)
-    assert (bits_a != bits_b).mean() < 1e-3, (bits_a != bits_b).mean()
-    np.testing.assert_allclose(np.asarray(out_tm.symbols.re),
-                               np.asarray(out_nt.symbols.re), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(st_tm.costas.lev),
-                               np.asarray(st_nt.costas.lev), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(st_tm.agc), np.asarray(st_nt.agc),
-                               rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

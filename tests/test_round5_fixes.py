@@ -15,6 +15,7 @@
   neighbor, biasing its offset by up to ~half a bin).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -238,33 +239,41 @@ def test_candidate_interp_delta_clamped():
 
 
 # ---------------------------------------------------------------------------
-# driver bench entry point: windows max + spread
+# bench entry point: median of the windows + spread, named device
 
 def test_bench_entry_reports_best_window(monkeypatch, capsys):
-    """bench.py runs 3 measurement windows and reports the max with the
-    spread visible — the guard against a single window captured under
-    relay contention reading 2.3x low (BENCH_r04)."""
+    """bench.py runs its measurement windows and reports the MEDIAN with
+    every window and the spread visible, beside the device it ran on (a
+    fake GPU here: the rate function is stubbed)."""
     import importlib
     import json
     import sys
+    import types
+    from pathlib import Path
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     bench = importlib.import_module("bench")
-    vals = iter([20e9, 28e9, 24e9])
+    vals = iter([20e9, 28e9, 24e9, 26e9, 22e9])
 
     def fake_rx():
         return {"metric": "rx_demod_throughput", "value": next(vals),
-                "unit": "samples/s", "vs_baseline": 1.0}
+                "unit": "samples/s", "channels": 8192, "frames": 8}
 
     import qpsk_tpu.benchmarks as B
+    gpu = types.SimpleNamespace(platform="gpu", device_kind="FAKE GPU")
     monkeypatch.setattr(B, "rx_throughput", fake_rx)
-    bench.main()
+    monkeypatch.setattr(jax, "devices", lambda *a: [gpu])
+    monkeypatch.setattr(bench, "power_limit", lambda: "700.00 W")
+    assert bench.main() == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1, "bench.py must print exactly ONE JSON line"
     rec = json.loads(out[0])
-    assert rec["value"] == 28e9
-    assert rec["windows"] == [20.0, 28.0, 24.0]
-    assert abs(rec["spread"] - (28 - 20) / 28) < 1e-3
+    assert rec["value"] == 24e9
+    assert rec["windows"] == [20e9, 28e9, 24e9, 26e9, 22e9]
+    assert abs(rec["spread"] - (28 - 20) / 24) < 1e-9
+    assert rec["device_kind"] == "FAKE GPU" and rec["device_count"] == 1
+    assert rec["power_limit"] == "700.00 W"
+    assert "vs_baseline" not in rec
 
 
 # ---------------------------------------------------------------------------

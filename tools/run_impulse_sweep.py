@@ -13,12 +13,15 @@ import os
 import sys
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+from qpsk_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -18,12 +18,15 @@ import sys
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
                            "--xla_cpu_multi_thread_eigen=false")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+from qpsk_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main() -> None:
